@@ -114,45 +114,70 @@ def measurement_loss_fn(
     sigma: Tensor,
     y_packed: Tensor,
     phi_packed: Tensor,
+    y_full: Tensor,
+    phi_full: Tensor,
 ) -> Callable[[], Tensor]:
     """The self-supervised loss closure of one adaptation trigger, over the
-    current parameters of ``net``: packed-4 mode, the MSE of the re-mosaicked
-    denoiser output through the forward model against the packed
-    measurement. (The full-res 'bayer1' mode of FastDVDnet is not ported yet.)"""
-    if prior.loss_mode != "packed4":
-        raise NotImplementedError(f"loss_mode={prior.loss_mode!r} is not ported yet")
+    current parameters of ``net``: the MSE of the re-mosaicked denoiser
+    output through the forward model against the measurement, on the packed
+    planes ('packed4', FFDNet) or on the full-resolution mosaic ('bayer1',
+    FastDVDnet). The denoiser runs through ``prior.apply_adapt`` when the
+    prior has one."""
+    apply = prior.apply_adapt or prior.apply
+    if prior.loss_mode == "packed4":
 
-    def loss() -> Tensor:
-        xhat = prior.apply(net, rgb_in, sigma)
-        pred = physics.forward(bayer.rggb_subsample(xhat), phi_packed)
-        return torch.mean((pred - y_packed) ** 2)
+        def loss() -> Tensor:
+            xhat = apply(net, rgb_in, sigma)
+            pred = physics.forward(bayer.rggb_subsample(xhat), phi_packed)
+            return torch.mean((pred - y_packed) ** 2)
 
+    elif prior.loss_mode == "bayer1":
+
+        def loss() -> Tensor:
+            xhat = apply(net, rgb_in, sigma)
+            pred = physics.forward(bayer.mosaic(xhat), phi_full)
+            return torch.mean((pred - y_full) ** 2)
+
+    else:
+        raise ValueError(f"unknown loss_mode {prior.loss_mode!r}")
     return loss
 
 
 def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
-    """Returns ``adapt(net, rgb_in, sigma, y_p, phi_p)``, which runs
-    one trigger's Adam steps on ``net`` in place. ``net`` is the solver's
-    private working copy."""
+    """Returns ``adapt(net, rgb_in, sigma, y_p, phi_p, y_f, phi_f, generator)``,
+    which runs one trigger's Adam steps on ``net`` in place. ``net`` is the
+    solver's private working copy, in eval mode: BatchNorm's running
+    statistics are buffers, not parameters, and stay as they are.
+
+    With ``prior.adapt_noise_std > 0`` the trigger first adds gaussian noise
+    of that standard deviation to its input, drawn from ``generator`` on the
+    generator's device (so a CPU generator gives the same draw wherever the
+    solver runs)."""
     if adapt_cfg.crop is not None:
         raise NotImplementedError("AdaptConfig.crop is not ported yet")
     if not adapt_cfg.fresh_opt_per_trigger:
         raise NotImplementedError(
             "AdaptConfig.fresh_opt_per_trigger=False (a carried Adam state) "
             "is not ported yet")
-    if prior.adapt_noise_std > 0 or prior.adapt_mask is not None:
-        raise NotImplementedError(
-            "adaptation input noise and Prior.adapt_mask are not ported yet")
+    if prior.adapt_mask is not None:
+        raise NotImplementedError("Prior.adapt_mask is not ported yet")
     stages = resolve_stages(adapt_cfg)
     filters = adapt_cfg.trainable_filter
 
-    def adapt(net: nn.Module, rgb_in: Tensor, sigma: Tensor, y_p: Tensor,
-              phi_p: Tensor) -> None:
+    def adapt(net: nn.Module, rgb_in: Tensor, sigma: Tensor, y_p: Tensor, phi_p: Tensor,
+              y_f: Tensor, phi_f: Tensor, generator: torch.Generator | None = None) -> None:
+        if prior.adapt_noise_std > 0:
+            if generator is None:
+                raise ValueError("the adaptation noise needs a torch.Generator")
+            noise = torch.randn(rgb_in.shape, generator=generator, dtype=rgb_in.dtype,
+                                device=generator.device)
+            rgb_in = rgb_in + prior.adapt_noise_std * noise.to(rgb_in.device)
         trainable = [
             p for name, p in net.named_parameters()
             if filters is None or any(f in name for f in filters)
         ]
-        loss = measurement_loss_fn(prior, net, rgb_in.detach(), sigma, y_p, phi_p)
+        loss = measurement_loss_fn(prior, net, rgb_in.detach(), sigma, y_p, phi_p,
+                                   y_f, phi_f)
         with torch.enable_grad():
             for lr_i, n_i in stages:
                 opt = torch.optim.Adam(trainable, lr=lr_i)

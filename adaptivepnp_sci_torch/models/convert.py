@@ -1,11 +1,17 @@
 """Weight bridge between Flax variables and PyTorch state dicts
-(port of ``adaptivepnp_sci_tpu.models.convert``, FFDNet part).
+(port of ``adaptivepnp_sci_tpu.models.convert``, FFDNet and FastDVDnet parts,
+and of the ``/``-keyed ``.npz`` reader of ``adaptivepnp_sci_tpu.train.trainer``).
 
 The JAX package converts a torch conv weight ``(O, I, kh, kw)`` to a Flax
 kernel ``(kh, kw, I, O)``; here the bridge runs the other way as well, so
 the same numpy arrays drive both packages. Flax names are
 ``params/conv_{i}/{kernel,bias}``; the port's FFDNet keeps the KAIR layout
 ``model.{2i}.{weight,bias}``.
+
+FastDVDnet: Flax scopes ``{temp1,temp2}/{inc,downc0,downc1,upc2,upc1,outc}/
+[cvblock/]{conv0,bn0,conv1,bn1}`` map onto the published model's
+``convblock`` indices, which the port's modules keep. BatchNorm splits into
+``params`` (``scale``, ``bias``) and ``batch_stats`` (``mean``, ``var``).
 """
 
 from __future__ import annotations
@@ -63,3 +69,95 @@ def load_ffdnet(path: str) -> dict[str, Tensor]:
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
     return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+# Flax scope -> index inside a (Conv, BN, ReLU, Conv, BN, ReLU) ``convblock``
+_CV_INDEX = {"conv0": "0", "bn0": "1", "conv1": "3", "bn1": "4"}
+_CV_SCOPE = {v: k for k, v in _CV_INDEX.items()}
+
+
+def _fdvd_torch_prefix(path: tuple[str, ...]) -> str:
+    """Flax module path ``(temp, block, [cvblock,] layer)`` -> state-dict prefix."""
+    temp, block, *rest = path
+    if rest[0] == "cvblock":  # nested CvBlock: index 3 of a down block, 0 of an up block
+        outer = "3" if block.startswith("downc") else "0"
+        return f"{temp}.{block}.convblock.{outer}.convblock.{_CV_INDEX[rest[1]]}"
+    if block.startswith("upc"):  # the conv before the pixel shuffle
+        return f"{temp}.{block}.convblock.1"
+    return f"{temp}.{block}.convblock.{_CV_INDEX[rest[0]]}"
+
+
+def _fdvd_flax_path(parts: list[str]) -> tuple[str, ...]:
+    """Inverse of :func:`_fdvd_torch_prefix` on a split state-dict prefix."""
+    temp, block, _, idx, *rest = parts
+    if rest:
+        return (temp, block, "cvblock", _CV_SCOPE[rest[1]])
+    if block.startswith("upc"):
+        return (temp, block, "conv0")
+    return (temp, block, _CV_SCOPE[idx])
+
+
+def _leaves(tree: Mapping[str, Any], path: tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path, k, np.asarray(v)
+
+
+def fastdvdnet_from_flax(variables: Mapping[str, Any]) -> dict[str, Tensor]:
+    """Flax FastDVDnet variables (``params`` and ``batch_stats``, numpy leaves)
+    -> state dict for :class:`adaptivepnp_sci_torch.models.fastdvdnet.FastDVDnet`."""
+    sd: dict[str, Tensor] = {}
+    for path, leaf, val in _leaves(variables["params"]):
+        prefix = _fdvd_torch_prefix(path)
+        if leaf == "kernel":
+            sd[f"{prefix}.weight"] = torch.from_numpy(conv_weight(val.astype(np.float32)))
+        else:  # BatchNorm scale / bias
+            name = "weight" if leaf == "scale" else "bias"
+            sd[f"{prefix}.{name}"] = torch.from_numpy(np.array(val, np.float32))
+    for path, leaf, val in _leaves(variables["batch_stats"]):
+        prefix = _fdvd_torch_prefix(path)
+        sd[f"{prefix}.running_{leaf}"] = torch.from_numpy(np.array(val, np.float32))
+        sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    return sd
+
+
+def fastdvdnet_to_flax(state_dict: Mapping[str, Tensor]) -> dict:
+    """Inverse of :func:`fastdvdnet_from_flax`: a (possibly adapted) state
+    dict -> Flax variables with numpy leaves."""
+    out: dict = {"params": {}, "batch_stats": {}}
+
+    def put(collection: str, path: tuple[str, ...], leaf: str, value: np.ndarray) -> None:
+        node = out[collection]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+
+    for key, t in state_dict.items():
+        *parts, leaf = key.removeprefix("module.").split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        path = _fdvd_flax_path(parts)
+        val = t.detach().cpu().numpy()
+        if leaf.startswith("running_"):
+            put("batch_stats", path, leaf.removeprefix("running_"), val)
+        elif path[-1].startswith("bn"):
+            put("params", path, "scale" if leaf == "weight" else "bias", val)
+        else:
+            put("params", path, "kernel", conv_kernel(val))
+    return out
+
+
+def load_variables_npz(path: str) -> dict:
+    """Read a ``/``-keyed ``.npz`` of model variables (the files in
+    ``weights/``) into a nested dict of numpy arrays."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *scopes, leaf = key.split("/")
+            node = tree
+            for p in scopes:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    return tree

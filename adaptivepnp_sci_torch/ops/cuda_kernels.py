@@ -8,13 +8,20 @@ Two kernels carry the flagship path, with the JAX package's wrapper names:
 * ``csrc/tv_chambolle.cu``: the channel-wise Chambolle TV prox with the
   per-plane early stop (:func:`tv_chambolle_fused`).
 
+A third carries the bf16 mode of the FastDVDnet prior, and replaces the
+fused kernel of ``scripts/ab_pallas_convpair.py``:
+
+* ``csrc/convpair.cu``: FastDVDnet's CvBlock, two 3x3 convolutions with
+  folded BatchNorm and ReLU, on the tensor cores with the intermediate kept
+  on chip (:func:`convpair`).
+
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into ``_build/`` beside the
 package; the libraries are loaded with ``ctypes``. A library's file name
 carries a hash of its source and flags, so an edited source is rebuilt.
 
 A wrapper given CPU tensors runs the plain PyTorch version
-(:mod:`.physics`, :mod:`.tv`). Given CUDA tensors it launches its kernel on
+(:mod:`.physics`, :mod:`.tv`, :mod:`.convpair`). Given CUDA tensors it launches its kernel on
 the current stream or raises; a failed build or launch is never caught to
 fall back. :data:`launches` counts kernel launches per kernel.
 """
@@ -34,6 +41,7 @@ from pathlib import Path
 import torch
 from torch import Tensor
 
+from adaptivepnp_sci_torch.ops import convpair as convpair_ops
 from adaptivepnp_sci_torch.ops import physics, tv
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -41,7 +49,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: sources, one shared library each
-SOURCES = {"x_update": CSRC / "x_update.cu", "tv_chambolle": CSRC / "tv_chambolle.cu"}
+SOURCES = {"x_update": CSRC / "x_update.cu", "tv_chambolle": CSRC / "tv_chambolle.cu",
+           "convpair": CSRC / "convpair.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,7 +58,7 @@ NVCC_FLAGS = (
 )
 
 #: kernel launches since the last :func:`reset_launches`, per kernel
-launches = {"x_update": 0, "tv_chambolle": 0}
+launches = {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 #: ptxas register / shared-memory report of each library built in this process
@@ -109,9 +118,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "x_update":
         lib.apnp_x_update.argtypes = [p, p, p, p, p, p, i, ll, f, f, f, f, i, p]
         lib.apnp_x_update.restype = i
-    else:
+    elif name == "tv_chambolle":
         lib.apnp_tv_chambolle.argtypes = [p, p, p, p, p, i, i, i, f, f, f, i, p]
         lib.apnp_tv_chambolle.restype = i
+    else:
+        lib.apnp_convpair.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.apnp_convpair.restype = i
     return lib
 
 
@@ -121,9 +133,10 @@ def _lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def _check(name: str, t: Tensor, shape: tuple[int, ...], device: torch.device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+def _check(name: str, t: Tensor, shape: tuple[int, ...], device: torch.device,
+           dtype: torch.dtype = torch.float32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if tuple(t.shape) != shape:
@@ -212,3 +225,48 @@ def tv_chambolle_fused(x: Tensor, weight: float = 0.1, eps: float = 2.0e-4,
     lead, hw = tuple(x.shape[:-2]), tuple(x.shape[-2:])
     out, _ = tv_chambolle_planes_cuda(x.reshape((-1,) + hw), weight, eps, max_iter)
     return out.reshape(lead + hw)
+
+
+#: channel counts the conv-pair kernel is compiled for
+CONVPAIR_CHANNELS = (32, 64, 128)
+
+
+def convpair(x: Tensor, w1: Tensor, s1: Tensor, b1: Tensor,
+             w2: Tensor, s2: Tensor, b2: Tensor) -> Tensor:
+    """Fused equivalent of :func:`adaptivepnp_sci_torch.ops.convpair.convpair`:
+    ``x (N, H, W, C)`` bf16, kernels ``(3, 3, C, C)`` bf16, ``s``/``b`` float32
+    with ``C`` elements, ``C`` in :data:`CONVPAIR_CHANNELS`; any ``H``, ``W``.
+
+    The kernel has no backward: with CUDA inputs that need a gradient it
+    raises, and a caller that differentiates takes the plain version."""
+    if x.device.type == "cpu":
+        return convpair_ops.convpair(x, w1, s1, b1, w2, s2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, s1, b1, w2, s2, b2)):
+        raise RuntimeError("convpair: the fused kernel has no backward; "
+                           "call ops.convpair.convpair for a forward with gradient")
+    if x.dim() != 4 or x.shape[3] not in CONVPAIR_CHANNELS:
+        raise ValueError(f"convpair: expected x (N, H, W, C) with C in {CONVPAIR_CHANNELS}, "
+                         f"got {tuple(x.shape)}")
+    n, h, w, c = x.shape
+    if n > 65535 or min(n, h, w) < 1:
+        raise ValueError(f"convpair: batch {n} and size {h}x{w} are outside the kernel's grid")
+    dev = x.device
+    _check("convpair x", x, (n, h, w, c), dev, torch.bfloat16)
+    for nm, t in (("w1", w1), ("w2", w2)):
+        _check(f"convpair {nm}", t, (3, 3, c, c), dev, torch.bfloat16)
+    vecs = [t.reshape(-1) for t in (s1, b1, s2, b2)]
+    for nm, t in zip(("s1", "b1", "s2", "b2"), vecs):
+        _check(f"convpair {nm}", t, (c,), dev)
+    out = torch.empty_like(x)
+    if any(t.data_ptr() % 16 for t in (x, w1, w2, out, *vecs)):
+        raise ValueError("convpair: every tensor must be aligned to 16 bytes")
+    lib = _lib("convpair")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.apnp_convpair(
+            x.data_ptr(), w1.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+            w2.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(), out.data_ptr(),
+            n, h, w, c, stream)
+    _raise_on(rc, "convpair")
+    launches["convpair"] += 1
+    return out

@@ -45,6 +45,7 @@ def reconstruct_single_dispatch(
     params: Mapping[str, Tensor] | None,
     orig: np.ndarray | Tensor | None = None,
     device: torch.device | str = "cuda",
+    generator: torch.Generator | None = None,
 ) -> EndToEndResult:
     """Reconstruct snapshot ``y (H, W)`` with masks ``phi (B, H, W)``.
 
@@ -52,6 +53,7 @@ def reconstruct_single_dispatch(
     modified, and the adapted weights come back in ``variables``. With
     ``orig (B, H, W)`` the result carries per-frame PSNR/SSIM and the
     per-iteration PSNR trace of the ADMM stage; without it they are zeros.
+    ``generator`` feeds the adaptation input noise (None seeds one with 0).
     """
     check_supported(admm_cfg)
     if admm_cfg.denoiser != "tv" and prior is None:
@@ -65,7 +67,8 @@ def reconstruct_single_dispatch(
         x0 = physics.adjoint(y_p, phi_p)
         xw, _ = _gap_tv_packed(y_p, phi_p, x0, None, warm_cfg)
         net = working_copy(prior, params, device) if admm_cfg.denoiser != "tv" else None
-        theta, xhat, trace = run_admm(admm_cfg, prior, net, y, phi, xw, orig_t)
+        theta, xhat, trace = run_admm(admm_cfg, prior, net, y, phi, xw, orig_t,
+                                      generator)
         x_bayer = bayer.unpack(theta)
         p, s = frame_metrics(orig_t, x_bayer)
     variables = net.state_dict() if net is not None else params

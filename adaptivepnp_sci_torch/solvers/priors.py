@@ -1,5 +1,5 @@
 """Denoiser-prior plugin interface for the PnP solvers
-(port of ``adaptivepnp_sci_tpu.solvers.priors``, FFDNet part).
+(port of ``adaptivepnp_sci_tpu.solvers.priors``, FFDNet and FastDVDnet parts).
 
 A prior names a template module and how to apply it over the whole
 ``(B, H, W, 3)`` frame cube, plus what online adaptation needs. The solvers
@@ -21,15 +21,17 @@ class Prior(NamedTuple):
     """A pluggable deep denoiser prior.
 
     Attributes:
-      name: identifier ('ffdnet', ...).
+      name: identifier ('ffdnet', 'fastdvd').
       model: template module; its architecture, not its weights, is used.
       apply: ``(module, rgb (B,H,W,3), sigma 0-d tensor) -> (B,H,W,3)``.
       loss_mode: measurement-consistency loss domain for online adaptation:
         'packed4' (4-channel packed planes) or 'bayer1' (full-res mosaic).
-      adapt_noise_std: gaussian noise added to the adaptation input (FFDNet 0).
-      adapt_mask: optional ('s'|'t'|'b', ratio) adaptation-input corruption.
-        Nonzero noise and the mask draw random numbers; both are not ported
-        yet and make the adaptation raise.
+      adapt_noise_std: gaussian noise added to the adaptation input
+        (FastDVDnet 5/255, FFDNet 0).
+      adapt_mask: optional ('s'|'t'|'b', ratio) adaptation-input corruption;
+        not ported yet, it makes the adaptation raise.
+      apply_adapt: optional memory-bounded variant of ``apply`` used inside
+        the adaptation gradient (None = ``apply``).
     """
 
     name: str
@@ -38,6 +40,7 @@ class Prior(NamedTuple):
     loss_mode: str = "packed4"
     adapt_noise_std: float = 0.0
     adapt_mask: tuple[str, float] | None = None
+    apply_adapt: Callable[[nn.Module, Tensor, Tensor], Tensor] | None = None
 
 
 def _apply_module(net: nn.Module, rgb: Tensor, sigma: Tensor) -> Tensor:
@@ -47,6 +50,59 @@ def _apply_module(net: nn.Module, rgb: Tensor, sigma: Tensor) -> Tensor:
 def ffdnet_prior(model: nn.Module) -> Prior:
     """FFDNet image prior: the B frames are denoised as one batch."""
     return Prior("ffdnet", model, _apply_module, loss_mode="packed4", adapt_noise_std=0.0)
+
+
+def window_indices(n_frames: int, window: int = 5) -> Tensor:
+    """Circular sliding-window gather indices ``(B, window)``: the window of
+    frame f is ``(f - hw .. f + hw) mod B``."""
+    hw = (window - 1) // 2
+    return (torch.arange(n_frames)[:, None] + torch.arange(window)[None, :] - hw) % n_frames
+
+
+def window_indices_mirror(n_frames: int, window: int = 5) -> Tensor:
+    """Mirror-border sliding windows: out-of-range neighbours reflect off the
+    sequence ends instead of wrapping."""
+    hw = (window - 1) // 2
+    idx = (torch.arange(n_frames)[:, None] + torch.arange(window)[None, :] - hw).abs()
+    return torch.where(idx >= n_frames, 2 * (n_frames - 1) - idx, idx)
+
+
+def _seq_circular(net: nn.Module, rgb: Tensor, sigma: Tensor) -> Tensor:
+    return net.seq_circular(rgb, sigma)
+
+
+def fastdvd_prior(model: nn.Module, window: int = 5, window_chunk: int | None = None,
+                  adapt_window_chunk: int | None = None,
+                  adapt_mask: tuple[str, float] | None = None) -> Prior:
+    """FastDVDnet temporal prior over circular 5-frame windows.
+
+    Default (``window == 5``, no chunking): the model's ``seq_circular``,
+    ``temp1`` evaluated once per distinct circular triplet.
+
+    ``window_chunk=k`` gathers the windows explicitly and runs them in
+    sequential groups of k (peak memory = one group), for memory-constrained
+    adaptation at large resolutions; ``adapt_window_chunk`` tightens the
+    group size inside the adaptation gradient only.
+    """
+
+    def chunked(chunk: int | None):
+        if chunk is None and window == 5:
+            return _seq_circular
+
+        def apply(net: nn.Module, rgb: Tensor, sigma: Tensor) -> Tensor:
+            b = rgb.shape[0]
+            windows = rgb[window_indices(b, window).to(rgb.device)]
+            if chunk is None or chunk >= b:
+                return net(windows, sigma)
+            if b % chunk:
+                raise ValueError(f"window_chunk {chunk} does not divide {b} frames")
+            return torch.cat([net(windows[i:i + chunk], sigma) for i in range(0, b, chunk)])
+
+        return apply
+
+    return Prior("fastdvd", model, chunked(window_chunk), loss_mode="bayer1",
+                 adapt_noise_std=5.0 / 255.0, adapt_mask=adapt_mask,
+                 apply_adapt=chunked(adapt_window_chunk or window_chunk))
 
 
 def working_copy(prior: Prior, params: Mapping[str, Tensor] | None,

@@ -1,4 +1,4 @@
-"""Two-stage online-adaptive plug-and-play ADMM, flagship subset
+"""Two-stage online-adaptive plug-and-play ADMM, FFDNet and FastDVDnet paths
 (port of ``adaptivepnp_sci_tpu.solvers.two_stage_admm``).
 
 Stage 1 works on packed Bayer planes (dual ``b``): the diagonalized
@@ -8,9 +8,9 @@ theta-update. Online adaptation of the denoiser fires on a mask computed on
 the host from the static schedule, so the solver is a plain Python loop with
 ``if mask[k]: adapt``.
 
-Ported: the ``ffdnet`` and ``tv`` denoiser branches with Malvar or bilinear
-demosaicking, and ``two_stage_admm``. Options of the JAX solver outside that
-subset raise ``NotImplementedError``; none is silently ignored.
+Ported: the ``ffdnet``, ``fastdvd`` and ``tv`` denoiser branches with Malvar
+or bilinear demosaicking, and ``two_stage_admm``. Options of the JAX solver
+outside that subset raise ``NotImplementedError``; none is silently ignored.
 
 Convolutions run in full float32: on entry the solver turns TF32 off for
 cuDNN and matmuls and restores the previous settings on exit.
@@ -39,7 +39,7 @@ class ADMMConfig:
 
     sigma: tuple[float, ...]
     iters: tuple[int, ...]
-    denoiser: str = "ffdnet"          # 'tv' | 'ffdnet'  ('fastdvd' not ported)
+    denoiser: str = "ffdnet"          # 'tv' | 'ffdnet' | 'fastdvd'
     demosaic_method: str = "malvar"   # 'malvar' | 'bilinear'
     closed_form_demosaic: bool = False
     tv_weight: float = 0.1
@@ -76,7 +76,7 @@ class ADMMResult(NamedTuple):
 
 def check_supported(config: ADMMConfig) -> None:
     """Raise ``NotImplementedError`` for an option outside the ported subset."""
-    if config.denoiser not in ("ffdnet", "tv"):
+    if config.denoiser not in ("ffdnet", "fastdvd", "tv"):
         raise NotImplementedError(f"denoiser={config.denoiser!r} is not ported yet")
     if config.demosaic_method not in ("malvar", "bilinear"):
         raise NotImplementedError(
@@ -106,10 +106,12 @@ def full_f32():
 
 
 def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
-             y_full: Tensor, phi_full: Tensor, x0: Tensor,
-             orig: Tensor | None) -> tuple[Tensor, Tensor, Tensor]:
+             y_full: Tensor, phi_full: Tensor, x0: Tensor, orig: Tensor | None,
+             generator: torch.Generator | None = None) -> tuple[Tensor, Tensor, Tensor]:
     """The whole sigma schedule from the packed warm start ``x0``; adapts
-    ``net`` in place when the schedule fires. Returns ``(theta, xhat, trace)``:
+    ``net`` in place when the schedule fires, drawing the adaptation noise
+    from ``generator`` (None: one seeded with 0 on the run's device).
+    Returns ``(theta, xhat, trace)``:
     the packed final theta, the final RGB cube (zeros for 'tv') and the
     per-iteration PSNR of theta against ``orig`` (zeros without it)."""
     sigmas_np, mask = make_schedule(config.sigma, config.iters, config.adapt)
@@ -147,6 +149,8 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
 
     dm = demosaic.bilinear if config.demosaic_method == "bilinear" else demosaic.malvar2004
     adapt = make_adapt_fn(prior, config.adapt) if config.adapt is not None else None
+    if adapt is not None and prior.adapt_noise_std > 0 and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
     sigmas = torch.as_tensor(sigmas_np, device=dev)  # one copy; sigmas[k] is a view
     w_dual = torch.zeros((n_frames, h, w, 3), dtype=torch.float32, device=dev)
     xhat = w_dual
@@ -156,7 +160,7 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         x_rgb = dm(bayer.unpack(x + b / rho))
         x_rgb_w = x_rgb - w_dual / tau
         if adapt is not None and mask[k]:
-            adapt(net, x_rgb_w, sigma, y_p, phi_p)
+            adapt(net, x_rgb_w, sigma, y_p, phi_p, y_full, phi_full, generator)
         xhat = prior.apply(net, x_rgb_w, sigma)
         theta = torch.clamp(bayer.rggb_subsample(xhat), 0.0, 1.0)
         b = b + (x - theta)
@@ -181,6 +185,7 @@ def two_stage_admm(
     x0_bayer: np.ndarray | Tensor | None = None,
     orig_bayer: np.ndarray | Tensor | None = None,
     device: torch.device | str = "cuda",
+    generator: torch.Generator | None = None,
 ) -> ADMMResult:
     """Reconstruct one measurement.
 
@@ -194,6 +199,8 @@ def two_stage_admm(
       x0_bayer:   warm start ``(B, H, W)`` (e.g. GAP-TV output).
       orig_bayer: optional ground truth for metrics.
       device:     where to run; the kernels run on CUDA.
+      generator:  source of the adaptation input noise (FastDVDnet); None
+        seeds one with 0.
     """
     check_supported(config)
     y = as_f32(y_bayer, device)
@@ -216,7 +223,7 @@ def two_stage_admm(
 
     with full_f32(), torch.no_grad():
         net = working_copy(prior, params, device) if config.denoiser != "tv" else None
-        theta, xhat, trace = run_admm(config, prior, net, y, phi, x0, orig)
+        theta, xhat, trace = run_admm(config, prior, net, y, phi, x0, orig, generator)
         x_bayer = bayer.unpack(theta)
         p, s = frame_metrics(orig, x_bayer)
     variables = net.state_dict() if net is not None else params

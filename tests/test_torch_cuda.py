@@ -2,7 +2,8 @@
 
 These need an NVIDIA GPU and ``nvcc``; without a GPU they skip. On the card:
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda``.
-Bar: rtol 1e-5 / atol 1e-6, as for the Pallas kernels.
+Bar: rtol 1e-5 / atol 1e-6, as for the Pallas kernels; the bf16 conv pair is
+held to the A/B script's gate, max abs error / max abs reference < 2e-2.
 """
 
 from pathlib import Path
@@ -11,7 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from adaptivepnp_sci_torch.ops import cuda_kernels, physics, tv
+from adaptivepnp_sci_torch.ab_convpair import make_inputs
+from adaptivepnp_sci_torch.models.convert import fastdvdnet_from_flax, load_variables_npz
+from adaptivepnp_sci_torch.models.fastdvdnet import CvBlock, FastDVDnet
+from adaptivepnp_sci_torch.ops import convpair, cuda_kernels, physics, tv
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -79,3 +83,75 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         cuda_kernels.tv_chambolle_fused(theta.transpose(-1, -2))
     with pytest.raises(ValueError):
         cuda_kernels.gap_x_update(theta, bd.cpu(), y, phi, phis)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 64), (1, 24, 32, 32), (2, 70, 94, 32),
+                                   (3, 8, 16, 128), (1, 37, 5, 128), (1, 1, 1, 64)])
+def test_convpair_kernel_matches_plain(cuda, shape):
+    """Whole tiles, ragged tiles, images smaller than a tile, every C."""
+    args = make_inputs(*shape, cuda)
+    before = cuda_kernels.launches["convpair"]
+    got = cuda_kernels.convpair(*args)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["convpair"] == before + 1
+    want = convpair.convpair(*args).float()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert float((got.float() - want).abs().max()) < 2e-2 * float(want.abs().max())
+
+
+def test_convpair_kernel_zeroes_the_intermediate_outside_the_image(cuda):
+    c = 32
+    x, w1, _, _, w2, _, _ = make_inputs(1, 30, 40, c, cuda)
+    s, b1, b2 = torch.ones(c, device=cuda), torch.full((c,), 0.5, device=cuda), \
+        torch.zeros(c, device=cuda)
+    args = (torch.zeros_like(x), w1, s, b1, torch.full_like(w2, 0.01), s, b2)
+    got = cuda_kernels.convpair(*args).float()
+    full = 9 * c * 0.5 * float(args[4][0, 0, 0, 0])
+    for (i, j), taps in (((15, 20), 9), ((0, 0), 4), ((29, 39), 4), ((0, 20), 6), ((15, 39), 6)):
+        torch.testing.assert_close(got[0, i, j], torch.full((c,), full * taps / 9, device=cuda),
+                                   rtol=1e-2, atol=0)
+
+
+def test_convpair_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args = list(make_inputs(1, 8, 8, 32, cuda))
+    with pytest.raises(RuntimeError):  # no backward
+        cuda_kernels.convpair(args[0], args[1].clone().requires_grad_(True), *args[2:])
+    with torch.no_grad():  # the same tensors without grad mode run
+        cuda_kernels.convpair(args[0], args[1].clone().requires_grad_(True), *args[2:])
+    with pytest.raises(TypeError):
+        cuda_kernels.convpair(args[0].float(), *args[1:])
+    with pytest.raises(ValueError):
+        cuda_kernels.convpair(args[0][..., :16].contiguous(), *args[1:])
+    with pytest.raises(ValueError):
+        cuda_kernels.convpair(args[0].permute(0, 2, 1, 3), *args[1:])
+    with pytest.raises(ValueError):
+        cuda_kernels.convpair(args[0], args[1].cpu(), *args[2:])
+
+
+def test_bf16_fastdvdnet_runs_the_kernel_only_without_gradient(cuda):
+    """Eight CvBlocks per denoiser call go through the kernel under no_grad,
+    each reading a channels-last activation in place (no transposing copy);
+    a forward with gradient takes the library route and still differentiates;
+    the two routes agree at bf16 level."""
+    root = Path(__file__).resolve().parent.parent
+    net = FastDVDnet(dtype=torch.bfloat16, remat=False)
+    net.load_state_dict(
+        fastdvdnet_from_flax(load_variables_npz(str(root / "weights" / "fastdvd.npz"))))
+    net.to(cuda).eval()
+    layouts = []
+    for m in net.modules():
+        if isinstance(m, CvBlock):
+            m.register_forward_pre_hook(lambda _, inp: layouts.append(
+                inp[0].is_contiguous(memory_format=torch.channels_last)))
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(8, 64, 48, 3, generator=g).to(cuda)
+    before = cuda_kernels.launches["convpair"]
+    with torch.no_grad():
+        fused = net.seq_circular(x, 12 / 255)
+    assert cuda_kernels.launches["convpair"] == before + 8
+    assert layouts == [True] * 8
+    plain = net.seq_circular(x, 12 / 255)
+    plain.square().mean().backward()
+    assert cuda_kernels.launches["convpair"] == before + 8
+    assert all(p.grad is not None and bool(p.grad.isfinite().all()) for p in net.parameters())
+    assert float((fused - plain.detach()).abs().max()) < 1e-2

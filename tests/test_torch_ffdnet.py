@@ -107,7 +107,8 @@ def test_packed4_loss_gradient_matches_jax(rng):
     tprior = tffdnet_prior(net)
     tloss = tonline.measurement_loss_fn(
         tprior, net, torch.from_numpy(rgb), torch.tensor(sigma),
-        torch.from_numpy(np.array(y_p)), torch.from_numpy(np.array(phi_p)))
+        torch.from_numpy(np.array(y_p)), torch.from_numpy(np.array(phi_p)),
+        torch.from_numpy(y), torch.from_numpy(phi))
     val = tloss()
     val.backward()
     np.testing.assert_allclose(val.item(), float(jval), rtol=1e-5)
@@ -143,7 +144,8 @@ def test_adapt_trigger_matches_jax(rng):
     tcfg = tonline.AdaptConfig(lr=2e-6, update_per_iter=2, interval_iter=15, initial_iter=1)
     tonline.make_adapt_fn(tffdnet_prior(net), tcfg)(
         net, torch.from_numpy(rgb), torch.tensor(sigma),
-        torch.from_numpy(np.array(y_p)), torch.from_numpy(np.array(phi_p)))
+        torch.from_numpy(np.array(y_p)), torch.from_numpy(np.array(phi_p)),
+        torch.from_numpy(y), torch.from_numpy(phi))
     got = tconvert.ffdnet_to_flax(net.state_dict())["params"]
     n_far = n_all = 0
     for name, p in jvars["params"].items():
@@ -174,7 +176,7 @@ def test_adaptation_leaves_callers_module_unchanged(rng):
     y_p = torch.from_numpy(np.array(bayer.pack(jnp.asarray(y))))
     phi_p = torch.from_numpy(np.array(bayer.pack(jnp.asarray(phi))))
     tonline.make_adapt_fn(prior, cfg)(net, torch.from_numpy(rgb), torch.tensor(0.1),
-                                      y_p, phi_p)
+                                      y_p, phi_p, torch.from_numpy(y), torch.from_numpy(phi))
     for k, v in template.state_dict().items():
         np.testing.assert_array_equal(v, before[k])
         np.testing.assert_array_equal(params[k], params_before[k])
@@ -191,7 +193,7 @@ def test_trainable_filter_freezes_other_parameters(rng):
     y_p = torch.from_numpy(np.array(bayer.pack(jnp.asarray(y))))
     phi_p = torch.from_numpy(np.array(bayer.pack(jnp.asarray(phi))))
     tonline.make_adapt_fn(prior, cfg)(net, torch.from_numpy(rgb), torch.tensor(0.1),
-                                      y_p, phi_p)
+                                      y_p, phi_p, torch.from_numpy(y), torch.from_numpy(phi))
     for k, v in net.state_dict().items():
         assert torch.equal(v, before[k]) != k.startswith("model.0."), k
 

@@ -14,10 +14,12 @@ ROOT = Path(__file__).resolve().parent.parent
 _RUN = r"""
 import sys
 import numpy as np
-from adaptivepnp_sci_torch import (ADMMConfig, AdaptConfig, GapTVConfig,
-                                   ffdnet_prior, reconstruct_single_dispatch)
+import torch
+from adaptivepnp_sci_torch import (ADMMConfig, AdaptConfig, FastDVDnet, FFDNet, GapTVConfig,
+                                   fastdvd_prior, ffdnet_prior, reconstruct_single_dispatch)
+from adaptivepnp_sci_torch import ab_convpair
 from adaptivepnp_sci_torch.data.synthetic import make_scene
-from adaptivepnp_sci_torch.models.ffdnet import FFDNet
+from adaptivepnp_sci_torch.models.convert import fastdvdnet_from_flax, load_variables_npz
 from adaptivepnp_sci_torch.ops import cuda_kernels
 
 sc = make_scene(b=8, h=16, w=16, seed=0)
@@ -28,7 +30,22 @@ res = reconstruct_single_dispatch(
                adapt=AdaptConfig(interval_iter=3)),
     prior, None, orig=sc.orig_bayer, device="cpu")
 assert res.x_bayer.shape == (8, 16, 16) and bool(res.x_bayer.isfinite().all())
-assert cuda_kernels.launches == {"x_update": 0, "tv_chambolle": 0}, cuda_kernels.launches
+params = fastdvdnet_from_flax(load_variables_npz("weights/fastdvd.npz"))
+for dtype in (None, torch.bfloat16):
+    res = reconstruct_single_dispatch(
+        sc.meas, sc.mask, GapTVConfig(iters=3),
+        ADMMConfig(sigma=(12 / 255,), iters=(3,), denoiser="fastdvd",
+                   adapt=AdaptConfig(lr=2e-7, interval_iter=2)),
+        fastdvd_prior(FastDVDnet(dtype=dtype)), params, orig=sc.orig_bayer, device="cpu")
+    assert res.x_bayer.shape == (8, 16, 16) and bool(res.x_bayer.isfinite().all())
+try:
+    ab_convpair.main(32, 16, 1)
+except RuntimeError as err:
+    assert "NVIDIA GPU" in str(err)
+else:
+    raise AssertionError("ab_convpair ran without a GPU")
+assert cuda_kernels.launches == {"x_update": 0, "tv_chambolle": 0, "convpair": 0}, \
+    cuda_kernels.launches
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "adaptivepnp_sci_tpu"))
 print("FOREIGN", bad)
@@ -70,7 +87,8 @@ def test_no_source_imports_jax():
 
 
 def test_cpu_tensors_take_plain_path_without_launches(rng):
-    from adaptivepnp_sci_torch.ops import cuda_kernels, physics, tv
+    from adaptivepnp_sci_torch.ab_convpair import make_inputs
+    from adaptivepnp_sci_torch.ops import convpair, cuda_kernels, physics, tv
 
     cuda_kernels.reset_launches()
     theta, b, phi = (torch.from_numpy(rng.random((4, 4, 8, 8), dtype=np.float32))
@@ -82,5 +100,7 @@ def test_cpu_tensors_take_plain_path_without_launches(rng):
                        physics.gap_x_update(theta, b, y, phi, phis, 0.5))
     assert torch.equal(cuda_kernels.tv_chambolle_fused(theta),
                        tv.tv_chambolle_multichannel(theta))
-    assert cuda_kernels.launches == {"x_update": 0, "tv_chambolle": 0}
+    pair = make_inputs(1, 6, 5, 32, torch.device("cpu"))
+    assert torch.equal(cuda_kernels.convpair(*pair), convpair.convpair(*pair))
+    assert cuda_kernels.launches == {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
     assert cuda_kernels._libs == {}  # nothing was built
