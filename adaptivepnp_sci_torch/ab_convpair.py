@@ -8,7 +8,9 @@ Without arguments it runs the script's two shapes, C = 64 @ 256x256 and
 C = 32 @ 512x512 with N = 8, and FastDVDnet's third CvBlock shape,
 C = 128 @ 128x128. Inputs come from numpy seed 0 as in the JAX script. The
 fused kernel's output is held against the plain pair before any time is
-printed (max abs error / max abs reference < 2e-2). Times are medians of
+printed (max abs error / max abs reference < 2e-2); the line also gives the
+time of each design of the kernel built for that C (``design=`` of
+``cuda_kernels.convpair``). Times are medians of
 CUDA events, each run queued behind a short device sleep so that the host's
 launch cost is hidden, with L2 flushed before each run. It needs an NVIDIA
 GPU and raises without one.
@@ -113,11 +115,16 @@ def main(c: int = 64, hw: int = 256, n: int = 8) -> None:
     flush = torch.zeros(128 * 2**20 // 4, device=dev)
     t_lib = time_ms(library_pair(*args), flush=flush)
     t_fused = time_ms(lambda: cuda_kernels.convpair(*args), flush=flush)
+    # every design built for this C (the default one is t_fused)
+    by_design = {d: time_ms(lambda d=d: cuda_kernels.convpair(*args, design=d), flush=flush)
+                 for d, (_, _, chans) in cuda_kernels.CONVPAIR_DESIGNS.items() if c in chans}
     flops = 2 * 2 * n * hw * hw * c * c * 9
     byts = 2 * args[0].numel() * 2  # one read + one write, bf16
     bound = max(flops / BF16_FLOPS, byts / HBM_BYTES_PER_S) * 1e3
     print(f"C={c} {hw}^2 N={n}: library pair {t_lib:.3f} ms, fused kernel {t_fused:.3f} ms "
-          f"({t_lib / t_fused:.2f}x), bound {bound:.3f} ms, rel err {err / scale:.2e}; "
+          f"({t_lib / t_fused:.2f}x; by design "
+          f"{', '.join(f'{d} {t:.3f} ms' for d, t in by_design.items())}), "
+          f"bound {bound:.3f} ms, rel err {err / scale:.2e}; "
           f"fused streams {byts / t_fused / 1e6:.0f} GB/s, {flops / t_fused / 1e9:.1f} TF/s "
           f"on {torch.cuda.get_device_name(0)}")
 

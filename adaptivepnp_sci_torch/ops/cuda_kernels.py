@@ -6,14 +6,21 @@ Two kernels carry the flagship path, with the JAX package's wrapper names:
 * ``csrc/x_update.cu``: the fused GAP / ADMM x-update
   (:func:`admm_x_update`, :func:`gap_x_update`);
 * ``csrc/tv_chambolle.cu``: the channel-wise Chambolle TV prox with the
-  per-plane early stop (:func:`tv_chambolle_fused`).
+  per-plane early stop (:func:`tv_chambolle_fused`), in two designs: a
+  thread-block cluster per plane with the state in shared memory
+  (``"cluster"``), and one block per plane with the state in device scratch
+  (``"block"``) for planes too large for that; :func:`tv_plan` chooses by
+  the plane's shape.
 
 A third carries the bf16 mode of the FastDVDnet prior, and replaces the
-fused kernel of ``scripts/ab_pallas_convpair.py``:
+fused kernel of ``scripts/ab_pallas_convpair.py``: FastDVDnet's CvBlock, two
+3x3 convolutions with folded BatchNorm and ReLU, on the tensor cores with
+the intermediate kept on chip (:func:`convpair`), in two designs:
 
-* ``csrc/convpair.cu``: FastDVDnet's CvBlock, two 3x3 convolutions with
-  folded BatchNorm and ReLU, on the tensor cores with the intermediate kept
-  on chip (:func:`convpair`).
+* ``csrc/convpair_wgmma.cu`` (``"wgmma"``): warpgroup matrix instructions
+  fed from shared memory, a persistent block per SM; C = 64 and 128;
+* ``csrc/convpair.cu`` (``"mma"``): warp-level ``mma.sync`` fed by
+  ``ldmatrix``; every C, and the only design for C = 32.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into ``_build/`` beside the
@@ -50,7 +57,7 @@ BUILD_DIR = _PKG / "_build"
 
 #: sources, one shared library each
 SOURCES = {"x_update": CSRC / "x_update.cu", "tv_chambolle": CSRC / "tv_chambolle.cu",
-           "convpair": CSRC / "convpair.cu"}
+           "convpair": CSRC / "convpair.cu", "convpair_wgmma": CSRC / "convpair_wgmma.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,6 +66,8 @@ NVCC_FLAGS = (
 
 #: kernel launches since the last :func:`reset_launches`, per kernel
 launches = {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
+#: the conv pair's launches once more, by ``(C, H, W)`` of the activation
+convpair_launches: dict[tuple[int, int, int], int] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 #: ptxas register / shared-memory report of each library built in this process
@@ -68,6 +77,7 @@ build_log: dict[str, str] = {}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    convpair_launches.clear()
 
 
 def _nvcc() -> str:
@@ -113,17 +123,25 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
-def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+def _signatures() -> dict[str, dict[str, list]]:
+    """Argument types of every exported C function, by library."""
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    if name == "x_update":
-        lib.apnp_x_update.argtypes = [p, p, p, p, p, p, i, ll, f, f, f, f, i, p]
-        lib.apnp_x_update.restype = i
-    elif name == "tv_chambolle":
-        lib.apnp_tv_chambolle.argtypes = [p, p, p, p, p, i, i, i, f, f, f, i, p]
-        lib.apnp_tv_chambolle.restype = i
-    else:
-        lib.apnp_convpair.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
-        lib.apnp_convpair.restype = i
+    pair = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    return {
+        "x_update": {"apnp_x_update": [p, p, p, p, p, p, i, ll, f, f, f, f, i, p]},
+        "tv_chambolle": {
+            "apnp_tv_chambolle": [p, p, p, p, p, i, i, i, f, f, f, i, p],
+            "apnp_tv_chambolle_cluster": [p, p, p, i, i, i, i, i, f, f, f, i, p],
+            "apnp_tv_cluster_occupancy": [i, i, i, p, p]},
+        "convpair": {"apnp_convpair": pair},
+        "convpair_wgmma": {"apnp_convpair_wgmma": pair},
+    }
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    for fn, argtypes in _signatures()[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -147,7 +165,7 @@ def _check(name: str, t: Tensor, shape: tuple[int, ...], device: torch.device,
 
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{what} failed: cudaError {rc}")
 
 
 def _x_update_cuda(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tensor,
@@ -170,7 +188,7 @@ def _x_update_cuda(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tens
             theta.data_ptr(), b.data_ptr(), y.data_ptr(), phi.data_ptr(),
             phi_s.data_ptr(), out.data_ptr(), cube[0], n_plane,
             sign, rho, c, lam, int(vec4), stream)
-    _raise_on(rc, "x_update")
+    _raise_on(rc, "x_update launch")
     launches["x_update"] += 1
     return out
 
@@ -191,25 +209,89 @@ def gap_x_update(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tensor
     return _x_update_cuda(theta, b, y, phi, phi_s, 1.0, 1.0, gamma, lam)
 
 
+#: shared memory a block of the TV cluster kernel may take for its strip
+#: (the 227 KB limit less the kernel's static reduction buffers), the bytes
+#: a pixel of the strip costs there (out, p_y, p_x in float32), and the
+#: largest strip of which two blocks fit on one SM (228 KB, 1 KB reserved
+#: per block)
+TV_STRIP_SMEM_BYTES = 227 * 1024 - 2048
+TV_STRIP_BYTES_PER_PIXEL = 12
+TV_STRIP_PIXELS = 9600
+TV_CLUSTER_SIZES = (1, 2, 3, 4, 5, 6, 7, 8)
+TV_DESIGNS = ("cluster", "block")
+
+
+def tv_plan(h: int, w: int) -> tuple[str, int, int]:
+    """``(design, cluster size, strip height)`` of the TV kernel for ``(h, w)``
+    planes, a pure function of the shape.
+
+    ``"cluster"``: the plane is cut into ``cluster size`` strips of
+    ``strip height`` rows (the last ones shorter, or empty), one per block of
+    a thread-block cluster, each strip's state in shared memory. The smallest
+    cluster whose strips hold at most :data:`TV_STRIP_PIXELS` pixels is
+    taken (256 x 256: 7 strips of 37 rows, the last of 34), else 8 blocks if their strips
+    still fit in shared memory. ``"block"``: planes too large for that
+    (512 x 512 and up) run one block per plane with the state in device
+    scratch; cluster size 1, strip height ``h``."""
+    if h < 1 or w < 1:
+        raise ValueError(f"tv_plan: expected a plane of at least 1 x 1, got {h} x {w}")
+    for cluster in TV_CLUSTER_SIZES:
+        strip_h = -(-h // cluster)
+        if strip_h * w <= TV_STRIP_PIXELS:
+            return "cluster", cluster, strip_h
+    if strip_h * w * TV_STRIP_BYTES_PER_PIXEL <= TV_STRIP_SMEM_BYTES:
+        return "cluster", cluster, strip_h
+    return "block", 1, h
+
+
+def tv_sms_used(n: int, h: int, w: int) -> int:
+    """SMs that one TV launch over ``n`` planes of ``(h, w)`` keeps busy at
+    once, asked of the device for the launch's block and cluster shape."""
+    design, cluster, strip_h = tv_plan(h, w)
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    if design == "block":
+        return min(n, sms)
+    clusters, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _lib("tv_chambolle").apnp_tv_cluster_occupancy(
+        cluster, strip_h, w, ctypes.byref(clusters), ctypes.byref(per_sm))
+    _raise_on(rc, "tv_chambolle occupancy query")
+    return min(sms, -(-min(n, clusters.value) * cluster // per_sm.value))
+
+
 def tv_chambolle_planes_cuda(planes: Tensor, weight: float = 0.1, eps: float = 2.0e-4,
-                             max_iter: int = 5) -> tuple[Tensor, Tensor]:
+                             max_iter: int = 5, design: str | None = None
+                             ) -> tuple[Tensor, Tensor]:
     """The TV kernel on ``(N, H, W)`` CUDA planes; returns ``(out, iterations)``
-    like :func:`tv.tv_chambolle_planes`."""
+    like :func:`tv.tv_chambolle_planes`. ``design`` is :func:`tv_plan`'s choice
+    for the shape unless given: ``"block"`` runs any shape, ``"cluster"``
+    raises for a plane that :func:`tv_plan` sends to ``"block"``."""
     if planes.dim() != 3:
         raise ValueError(f"tv_chambolle: expected (N, H, W), got {tuple(planes.shape)}")
     _check("tv_chambolle input", planes, tuple(planes.shape), planes.device)
     n, h, w = planes.shape
+    planned, cluster, strip_h = tv_plan(h, w)
+    if design is None:
+        design = planned
+    if design not in TV_DESIGNS:
+        raise ValueError(f"tv_chambolle: design must be one of {TV_DESIGNS}, got {design!r}")
+    if design == "cluster" and planned != "cluster":
+        raise ValueError(f"tv_chambolle: a {h} x {w} plane does not fit the cluster design")
     out = torch.empty_like(planes)
-    py = torch.empty_like(planes)
-    px = torch.empty_like(planes)
     iters = torch.empty(n, dtype=torch.int32, device=planes.device)
     lib = _lib("tv_chambolle")
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        rc = lib.apnp_tv_chambolle(
-            planes.data_ptr(), out.data_ptr(), py.data_ptr(), px.data_ptr(),
-            iters.data_ptr(), n, h, w, weight, 0.25 / weight, eps, max_iter, stream)
-    _raise_on(rc, "tv_chambolle")
+        if design == "cluster":
+            rc = lib.apnp_tv_chambolle_cluster(
+                planes.data_ptr(), out.data_ptr(), iters.data_ptr(), n, h, w, cluster,
+                strip_h, weight, 0.25 / weight, eps, max_iter, stream)
+        else:
+            py = torch.empty_like(planes)
+            px = torch.empty_like(planes)
+            rc = lib.apnp_tv_chambolle(
+                planes.data_ptr(), out.data_ptr(), py.data_ptr(), px.data_ptr(),
+                iters.data_ptr(), n, h, w, weight, 0.25 / weight, eps, max_iter, stream)
+    _raise_on(rc, "tv_chambolle launch")
     launches["tv_chambolle"] += 1
     return out, iters
 
@@ -218,7 +300,10 @@ def tv_chambolle_fused(x: Tensor, weight: float = 0.1, eps: float = 2.0e-4,
                        max_iter: int = 5) -> Tensor:
     """Channel-wise 2-D TV prox over ``(..., H, W)``: the CUDA kernel for
     CUDA tensors, :func:`tv.tv_chambolle_multichannel` for CPU tensors. Any
-    plane size runs on the kernel."""
+    plane size runs on a kernel: planes whose strips fit in shared memory
+    (up to 8 strips of 19,200 pixels, e.g. 256 x 256 and 384 x 384) on the
+    cluster design, larger ones (512 x 512 and up) on the one-block-per-plane
+    design; see :func:`tv_plan`."""
     if x.device.type == "cpu":
         return tv.tv_chambolle_multichannel(x, weight, eps, max_iter)
     _check("tv_chambolle input", x, tuple(x.shape), x.device)
@@ -227,15 +312,22 @@ def tv_chambolle_fused(x: Tensor, weight: float = 0.1, eps: float = 2.0e-4,
     return out.reshape(lead + hw)
 
 
-#: channel counts the conv-pair kernel is compiled for
+#: channel counts the conv-pair kernels are compiled for, and the design
+#: each takes unless the caller names one: ``"wgmma"``
+#: (``csrc/convpair_wgmma.cu``, C = 64 and 128) or ``"mma"``
+#: (``csrc/convpair.cu``, every C)
 CONVPAIR_CHANNELS = (32, 64, 128)
+CONVPAIR_DESIGN = {32: "mma", 64: "wgmma", 128: "wgmma"}
+CONVPAIR_DESIGNS = {"mma": ("convpair", "apnp_convpair", (32, 64, 128)),
+                    "wgmma": ("convpair_wgmma", "apnp_convpair_wgmma", (64, 128))}
 
 
 def convpair(x: Tensor, w1: Tensor, s1: Tensor, b1: Tensor,
-             w2: Tensor, s2: Tensor, b2: Tensor) -> Tensor:
+             w2: Tensor, s2: Tensor, b2: Tensor, design: str | None = None) -> Tensor:
     """Fused equivalent of :func:`adaptivepnp_sci_torch.ops.convpair.convpair`:
     ``x (N, H, W, C)`` bf16, kernels ``(3, 3, C, C)`` bf16, ``s``/``b`` float32
     with ``C`` elements, ``C`` in :data:`CONVPAIR_CHANNELS`; any ``H``, ``W``.
+    ``design`` is :data:`CONVPAIR_DESIGN`'s for ``C`` unless given.
 
     The kernel has no backward: with CUDA inputs that need a gradient it
     raises, and a caller that differentiates takes the plain version."""
@@ -248,6 +340,11 @@ def convpair(x: Tensor, w1: Tensor, s1: Tensor, b1: Tensor,
         raise ValueError(f"convpair: expected x (N, H, W, C) with C in {CONVPAIR_CHANNELS}, "
                          f"got {tuple(x.shape)}")
     n, h, w, c = x.shape
+    if design is None:
+        design = CONVPAIR_DESIGN[c]
+    if design not in CONVPAIR_DESIGNS or c not in CONVPAIR_DESIGNS[design][2]:
+        raise ValueError(f"convpair: no design {design!r} for C = {c}")
+    source, entry, _ = CONVPAIR_DESIGNS[design]
     if n > 65535 or min(n, h, w) < 1:
         raise ValueError(f"convpair: batch {n} and size {h}x{w} are outside the kernel's grid")
     dev = x.device
@@ -260,13 +357,14 @@ def convpair(x: Tensor, w1: Tensor, s1: Tensor, b1: Tensor,
     out = torch.empty_like(x)
     if any(t.data_ptr() % 16 for t in (x, w1, w2, out, *vecs)):
         raise ValueError("convpair: every tensor must be aligned to 16 bytes")
-    lib = _lib("convpair")
+    lib = _lib(source)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.apnp_convpair(
+        rc = getattr(lib, entry)(
             x.data_ptr(), w1.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
             w2.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(), out.data_ptr(),
             n, h, w, c, stream)
-    _raise_on(rc, "convpair")
+    _raise_on(rc, "convpair launch")
     launches["convpair"] += 1
+    convpair_launches[(c, h, w)] = convpair_launches.get((c, h, w), 0) + 1
     return out

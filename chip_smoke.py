@@ -7,8 +7,9 @@ Run from the repository root:
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases build,k1,k2
 
-It builds the three CUDA kernels from ``adaptivepnp_sci_torch/csrc/``, holds
-each against its plain PyTorch version on the card, holds the kernel paths
+It builds the CUDA kernels from ``adaptivepnp_sci_torch/csrc/``, holds each
+against its plain PyTorch version on the card (both designs of the TV and
+conv-pair kernels, timed side by side), holds the kernel paths
 against the plain paths on the CPU end to end, and drives two 512x512x8
 reconstructions: the flagship (GAP-TV warm start, two-stage ADMM with
 FFDNet-color nc = 96, nb = 12 and online adaptation, random weights made
@@ -61,6 +62,9 @@ FASTDVD_LAUNCHES = {
     "fp32": {"x_update": 76, "tv_chambolle": 40, "convpair": 0},
     "bf16": {"x_update": 76, "tv_chambolle": 40, "convpair": 288},
 }
+#: the conv pair's two shapes on that path, (C, H, W) of the activation with
+#: N = 8: half and quarter resolution, 4 CvBlocks per denoiser call each
+CONVPAIR_MAIN_SHAPES = {"c64_256": (64, 256, 256), "c128_128": (128, 128, 128)}
 #: Parity of the kernel path on the card with the plain path on the CPU at
 #: 64x64x8: (iterations, launches, bar on per-frame PSNR in dB, bar on x_bayer,
 #: what of x_bayer the bar holds). Float32 differs by summation order only.
@@ -215,7 +219,10 @@ def flagship_profile(torch, run, trace: str | None) -> dict:
               if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:10]
-    ours = {name: sum(dev_us(e) for e in events if f"{name}_kernel" in e.key) / 1e3
+    # every design of a kernel: x_update_kernel, tv_chambolle[_cluster]_kernel,
+    # convpair[_wgmma]_kernel
+    ours = {name: sum(dev_us(e) for e in events
+                      if name in e.key and "_kernel" in e.key) / 1e3
             for name in ("x_update", "tv_chambolle", "convpair")}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms if events else "not measured",
             "idle_share": 1 - busy_ms / wall_ms if events else "not measured",
@@ -271,8 +278,8 @@ def main(argv: list[str]) -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     build_s = cuda_kernels.build()
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip()[:200] for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
              for name, log in cuda_kernels.build_log.items()}
     emit("build", seconds=build_s, ptxas=ptxas)
 
@@ -343,6 +350,8 @@ def main(argv: list[str]) -> int:
             inputs.append(xb.reshape(32, 256, 256).contiguous())
             theta_w = torch.clamp(tv.tv_chambolle_multichannel(xb, 0.1, max_iter=5), 0, 1)
             b_w = b_w - (x - theta_w)
+        design, cluster, strip_h = cuda_kernels.tv_plan(256, 256)
+        require(design == "cluster", f"k2: 256 x 256 planes planned as {design}")
         err, flips, planes, iters_hist = 0.0, 0, 0, {}
         for inp in inputs:
             k_out, k_it = cuda_kernels.tv_chambolle_planes_cuda(inp, 0.1, 2e-4, 5)
@@ -356,26 +365,57 @@ def main(argv: list[str]) -> int:
             err = max(err, float((k_out - p_out).abs().max()))
             require(bool(torch.allclose(k_out, p_out, rtol=1e-5, atol=1e-6)),
                     f"k2: kernel disagrees with plain (max abs {err})")
+        require(flips == 0, f"k2: {flips} of {planes} stop decisions differ from the plain version")
         real = inputs[1]
+        # the one-block-per-plane design on the same planes, and on planes that
+        # only it takes; the cluster design twice on one input (no atomics)
+        large = torch.rand(2, 512, 512, generator=g).to(dev)
+        require(cuda_kernels.tv_plan(512, 512)[0] == "block", "k2: 512 x 512 not planned as block")
+        others = {}
+        for name, inp, kw in (("block_rand", rand, dict(design="block")),
+                              ("block_real", real, dict(design="block")),
+                              ("large_plane_512", large, {})):
+            k_out, k_it = cuda_kernels.tv_chambolle_planes_cuda(inp, 0.1, 2e-4, 5, **kw)
+            p_out, p_it = tv.tv_chambolle_planes(inp, 0.1, 2e-4, 5)
+            others[name] = float((k_out - p_out).abs().max())
+            require(bool(torch.allclose(k_out, p_out, rtol=1e-5, atol=1e-6))
+                    and bool(torch.equal(k_it, p_it)), f"k2 {name}: disagrees with plain")
+        again = [cuda_kernels.tv_chambolle_planes_cuda(real, 0.1, 2e-4, 5)[0] for _ in range(2)]
+        require(bool(torch.equal(*again)), "k2: two calls on one input differ")
+        sms_used = cuda_kernels.tv_sms_used(*real.shape)
+        require(sms_used > 32, f"k2: the cluster design ran on {sms_used} SMs")
         _, it_real = cuda_kernels.tv_chambolle_planes_cuda(real, 0.1, 2e-4, 5)
         n_iter = int(it_real.sum())
         byts = 2 * real.numel() * 4
         flops = n_iter * 256 * 256 * TV_FLOPS_PER_PIXEL_ITER
         bound_ms = max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-        ms = time_ms(lambda: cuda_kernels.tv_chambolle_fused(real, 0.1), flush=flush)
-        warm_ms = time_ms(lambda: cuda_kernels.tv_chambolle_fused(real, 0.1))
+
+        def run_new():
+            return cuda_kernels.tv_chambolle_fused(real, 0.1)
+
+        def run_old():
+            return cuda_kernels.tv_chambolle_planes_cuda(real, 0.1, design="block")
+
+        # new, old, old, new within one run on one card
+        cold = [time_ms(f, flush=flush) for f in (run_new, run_old, run_old, run_new)]
+        ms, previous_ms = min(cold[0], cold[3]), min(cold[1], cold[2])
+        warm_ms, previous_warm_ms = time_ms(run_new), time_ms(run_old)
+        require(ms < previous_ms, f"k2: cluster design {ms} ms, block design {previous_ms} ms")
         plain_ms = time_ms(lambda: tv.tv_chambolle_multichannel(real, 0.1), n=10,
                            flush=flush)
         emit("k2", shape=[32, 256, 256], tolerance="rtol 1e-5, atol 1e-6",
+             design=design, cluster_size=cluster, strip_rows=strip_h,
              golden_max_abs=golden_err, max_abs=err, planes_compared=planes,
              stop_iteration_flips=flips, kernel_iterations_histogram=iters_hist,
+             other_checks_max_abs=others, repeated_call_identical=True,
              timed_input="first warm-start TV input", timed_plane_iterations=n_iter,
-             ms=ms, warm_l2_ms=warm_ms, plain_ms=plain_ms, bytes=byts, flops=flops,
-             bound_us=bound_ms * 1e3,
+             ms=ms, warm_l2_ms=warm_ms, previous_design="block", previous_ms=previous_ms,
+             previous_warm_l2_ms=previous_warm_ms, cold_runs_new_old_old_new=cold,
+             plain_ms=plain_ms, bytes=byts, flops=flops, bound_us=bound_ms * 1e3,
              bound_basis="max(bytes / 3.35 TB/s, flops / 67 TFLOP/s fp32)",
-             sms_used=32, **card)
-        report["tv_chambolle"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                  "bound_ms": bound_ms,
+             sms_used=sms_used, **card)
+        report["tv_chambolle"] = {"max_abs_err": err, "ms": ms, "previous_ms": previous_ms,
+                                  "plain_ms": plain_ms, "bound_ms": bound_ms,
                                   "bound_by": "bytes" if byts / HBM_BYTES_PER_S
                                   >= flops / FP32_FLOPS else "operations"}
 
@@ -406,40 +446,66 @@ def main(argv: list[str]) -> int:
         }
         per = {}
         for name, pair in cases.items():
-            got = cuda_kernels.convpair(*pair)
-            torch.cuda.synchronize()
-            want = convpair_ops.convpair(*pair)
-            require(bool(torch.isfinite(got.float()).all()), f"k3 {name}: non-finite output")
-            err = float((got.float() - want.float()).abs().max())
-            scale = float(want.float().abs().max()) or 1.0
-            require(err / scale < 2e-2, f"k3 {name}: rel err {err / scale} >= 2e-2")
             n, h, w, c = pair[0].shape
+            want = convpair_ops.convpair(*pair)
+            scale = float(want.float().abs().max()) or 1.0
+            designs = [cuda_kernels.CONVPAIR_DESIGN[c]]
+            designs += [d for d, (_, _, chans) in cuda_kernels.CONVPAIR_DESIGNS.items()
+                        if c in chans and d not in designs]
+            errs = {}
+            for d in designs:  # the default design first, then the kept earlier one
+                got = cuda_kernels.convpair(*pair, design=d)
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(got.float()).all()),
+                        f"k3 {name} {d}: non-finite output")
+                errs[d] = float((got.float() - want.float()).abs().max())
+                require(errs[d] / scale < 2e-2,
+                        f"k3 {name} {d}: rel err {errs[d] / scale} >= 2e-2")
+            err = errs[designs[0]]
             flops = 2 * 2 * 9 * c * c * n * h * w
             byts = 2 * pair[0].numel() * 2 + 2 * 9 * c * c * 2 + 4 * c * 4
-            per[name] = {"shape": [n, h, w, c], "max_abs": err, "max_abs_ref": scale,
-                         "rel_err": err / scale, "flops": flops, "bytes": byts,
+            per[name] = {"shape": [n, h, w, c], "design": designs[0], "max_abs": err,
+                         "max_abs_ref": scale, "rel_err": err / scale,
+                         "rel_err_by_design": {d: e / scale for d, e in errs.items()},
+                         "flops": flops, "bytes": byts,
                          "bound_us": max(flops / BF16_FLOPS, byts / HBM_BYTES_PER_S) * 1e6,
                          "bound_by": "operations" if flops / BF16_FLOPS
                          >= byts / HBM_BYTES_PER_S else "bytes"}
             if "trained" in name or "odd" in name:
                 continue
             lib = library_pair(*pair)
+
+            def run_new():
+                return cuda_kernels.convpair(*pair)
+
+            def run_old():
+                return cuda_kernels.convpair(*pair, design="mma")
+
+            # new, old, old, new within one run on one card
+            cold = [time_ms(f, flush=flush) for f in (run_new, run_old, run_old, run_new)]
             per[name].update(
-                ms=time_ms(lambda: cuda_kernels.convpair(*pair), flush=flush),
-                warm_l2_ms=time_ms(lambda: cuda_kernels.convpair(*pair)),
+                ms=min(cold[0], cold[3]), previous_design="mma",
+                previous_ms=min(cold[1], cold[2]), cold_runs_new_old_old_new=cold,
+                warm_l2_ms=time_ms(run_new), previous_warm_l2_ms=time_ms(run_old),
                 plain_ms=time_ms(lambda: convpair_ops.convpair(*pair), n=10, flush=flush),
                 library_ms=time_ms(lib, n=10, flush=flush))
             per[name]["tflops"] = flops / (per[name]["ms"] * 1e-3) / 1e12
+            if name in CONVPAIR_MAIN_SHAPES:
+                require(per[name]["ms"] <= per[name]["previous_ms"],
+                        f"k3 {name}: {per[name]['ms']} ms, earlier design "
+                        f"{per[name]['previous_ms']} ms")
         emit("k3", tolerance="max abs err / max abs reference < 2e-2", cases=per,
              bound_basis="max(flops / 989 TFLOP/s bf16 dense, bytes / 3.35 TB/s)",
              library="two channels-last bf16 F.conv2d with folded scale and bias, ReLU in place",
              **card)
-        main_case = per["c64_256"]
-        report["convpair"] = {
-            "max_abs_err": max(c["max_abs"] for c in per.values()),
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_us"] / 1e3, "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"]}
+        for name in CONVPAIR_MAIN_SHAPES:
+            case = per[name]
+            report[f"convpair_{name}"] = {
+                "max_abs_err": max(c["max_abs"] for c in per.values()
+                                   if c["shape"][3] == case["shape"][3]),
+                "ms": case["ms"], "previous_ms": case["previous_ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_us"] / 1e3,
+                "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
         del cases, trained
 
     def run_flagship(scene, prior, params, device, warm_iters=40):
@@ -575,6 +641,11 @@ def main(argv: list[str]) -> int:
                     require(counts == FASTDVD_LAUNCHES[mode],
                             f"fastdvd {mode} {style}: launches {counts}")
                     report.setdefault(f"launches_fastdvd_{mode}", counts)
+                    if mode == "bf16":
+                        by_shape = dict(cuda_kernels.convpair_launches)
+                        require(by_shape == {shp: 144 for shp in CONVPAIR_MAIN_SHAPES.values()},
+                                f"fastdvd bf16 {style}: conv pair launches {by_shape}")
+                        report.setdefault("launches_convpair", by_shape)
                     if rep:
                         secs.append(dt)
                 peak = torch.cuda.max_memory_allocated()
@@ -628,18 +699,25 @@ def main(argv: list[str]) -> int:
     if "kernels" in phases:
         # launches on the main paths: the flagship's for its two kernels, the
         # bf16 FastDVDnet reconstruction's for the conv pair
-        launches = {**report["launches"],
-                    "convpair": report["launches_fastdvd_bf16"]["convpair"]}
-        sources = {"x_update": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:58",
-                   "tv_chambolle": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:93",
-                   "convpair": "scripts/ab_pallas_convpair.py:47"}
-        rows = [{"name": name, "route": "cuda",
-                 "source": f"adaptivepnp_sci_torch/csrc/{name}.cu",
-                 "replaces": sources[name], "launches": launches[name],
-                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                 "library_ms": r.get("library_ms")}
-                for name, r in ((n, report[n]) for n in sources)]
+        launches = dict(report["launches"])
+        for name, shape in CONVPAIR_MAIN_SHAPES.items():
+            launches[f"convpair_{name}"] = report["launches_convpair"][shape]
+        pallas = {"x_update": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:58",
+                  "tv_chambolle": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:93",
+                  "convpair": "scripts/ab_pallas_convpair.py:47"}
+        sources = {"x_update": "x_update.cu", "tv_chambolle": "tv_chambolle.cu",
+                   "convpair": "convpair_wgmma.cu"}
+        rows = []
+        for name, kernel in (("x_update", "x_update"), ("tv_chambolle", "tv_chambolle"),
+                             *((f"convpair_{n}", "convpair") for n in CONVPAIR_MAIN_SHAPES)):
+            r = report[name]
+            rows.append({"name": name, "route": "cuda",
+                         "source": f"adaptivepnp_sci_torch/csrc/{sources[kernel]}",
+                         "replaces": pallas[kernel], "launches": launches[name],
+                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                         "previous_ms": r.get("previous_ms"), "plain_ms": r["plain_ms"],
+                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                         "library_ms": r.get("library_ms")})
         require(all(row["launches"] > 0 for row in rows), f"a kernel was never launched: {rows}")
         print(json.dumps({"kernels": rows}), flush=True)
 

@@ -73,6 +73,50 @@ def test_tv_kernel_matches_plain_and_golden(cuda):
     np.testing.assert_allclose(out.cpu().numpy(), gold["out"], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("design", [None, "cluster", "block"])
+@pytest.mark.parametrize("shape", [
+    (32, 256, 256),   # the main path: 7 strips of 37 rows, the last of 34
+    (1, 256, 256),    # one plane
+    (3, 37, 53),      # h not a multiple of anything, w not a multiple of 4
+    (2, 100, 201),    # 3 strips of 34 rows, the last of 32, odd width
+    (2, 3, 10000),    # fewer rows than strips: empty strips
+    (2, 300, 500),    # 8 strips, the last one short
+    (2, 512, 512),    # too large for shared memory: the block design by the shape rule
+])
+def test_tv_designs_match_plain(cuda, shape, design):
+    """Both designs against the plain version, noise and smooth planes (which
+    stop early): same output, same iteration counts."""
+    planned = cuda_kernels.tv_plan(*shape[1:])[0]
+    g = torch.Generator().manual_seed(2)
+    noise = torch.rand(*shape, generator=g)
+    smooth = torch.nn.functional.avg_pool2d(noise[None], 3, 1, 1)[0].contiguous()
+    for x in (noise.to(cuda), smooth.to(cuda)):
+        if design == "cluster" and planned == "block":
+            with pytest.raises(ValueError):
+                cuda_kernels.tv_chambolle_planes_cuda(x, 0.1, 2e-4, 5, design=design)
+            continue
+        before = cuda_kernels.launches["tv_chambolle"]
+        got, it = cuda_kernels.tv_chambolle_planes_cuda(x, 0.1, 2e-4, 5, design=design)
+        want, want_it = tv.tv_chambolle_planes(x, 0.1, 2e-4, 5)
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(it, want_it)
+        assert cuda_kernels.launches["tv_chambolle"] == before + 1
+
+
+def test_tv_cluster_design_gives_identical_bits_on_repeated_calls(cuda):
+    """No atomics: the energy sums are added in a fixed order."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(32, 256, 256, generator=g).to(cuda)
+    assert cuda_kernels.tv_plan(256, 256)[0] == "cluster"
+    first, first_it = cuda_kernels.tv_chambolle_planes_cuda(x, 0.1, 2e-4, 5)
+    for _ in range(3):
+        again, again_it = cuda_kernels.tv_chambolle_planes_cuda(x, 0.1, 2e-4, 5)
+        assert torch.equal(first, again) and torch.equal(first_it, again_it)
+    assert cuda_kernels.tv_sms_used(32, 256, 256) > 32
+    with pytest.raises(ValueError):
+        cuda_kernels.tv_chambolle_planes_cuda(x, 0.1, 2e-4, 5, design="fast")
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     theta, bd, y, phi, phis = _xdata(cuda, 2, 8, 8)
     with pytest.raises(TypeError):
@@ -99,8 +143,37 @@ def test_convpair_kernel_matches_plain(cuda, shape):
     assert float((got.float() - want).abs().max()) < 2e-2 * float(want.abs().max())
 
 
-def test_convpair_kernel_zeroes_the_intermediate_outside_the_image(cuda):
-    c = 32
+@pytest.mark.parametrize("design", ["wgmma", "mma"])
+@pytest.mark.parametrize("shape", [
+    (8, 256, 256, 64), (8, 128, 128, 128),  # the main path's two shapes
+    (2, 70, 94, 64), (2, 70, 94, 128),      # ragged tiles in both directions
+    (1, 5, 40, 64), (1, 40, 5, 128), (1, 3, 3, 128),  # H or W smaller than one tile
+    (3, 25, 29, 64),                        # several tiles a block, none whole
+])
+def test_convpair_designs_match_plain(cuda, shape, design):
+    """The wgmma design and the kept mma.sync design, each named outright."""
+    args = make_inputs(*shape, cuda)
+    got = cuda_kernels.convpair(*args, design=design)
+    torch.cuda.synchronize()
+    want = convpair.convpair(*args).float()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool(got.isfinite().all())
+    assert float((got.float() - want).abs().max()) < 2e-2 * float(want.abs().max())
+    assert cuda_kernels.convpair_launches[shape[3], shape[1], shape[2]] >= 1
+
+
+def test_convpair_wgmma_design_is_not_built_for_c32(cuda):
+    args = make_inputs(1, 8, 8, 32, cuda)
+    assert cuda_kernels.CONVPAIR_DESIGN[32] == "mma"
+    with pytest.raises(ValueError):
+        cuda_kernels.convpair(*args, design="wgmma")
+    with pytest.raises(ValueError):
+        cuda_kernels.convpair(*args, design="fast")
+
+
+@pytest.mark.parametrize("c", [32, 64, 128])
+def test_convpair_kernel_zeroes_the_intermediate_outside_the_image(cuda, c):
+    """Corners see 4 taps of the intermediate, edges 6, the interior 9."""
     x, w1, _, _, w2, _, _ = make_inputs(1, 30, 40, c, cuda)
     s, b1, b2 = torch.ones(c, device=cuda), torch.full((c,), 0.5, device=cuda), \
         torch.zeros(c, device=cuda)
