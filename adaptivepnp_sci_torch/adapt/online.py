@@ -143,6 +143,18 @@ def measurement_loss_fn(
     return loss
 
 
+def check_adapt_supported(prior: "Prior", adapt_cfg: AdaptConfig) -> None:
+    """Raise ``NotImplementedError`` for an adaptation option not ported yet."""
+    if adapt_cfg.crop is not None:
+        raise NotImplementedError("AdaptConfig.crop is not ported yet")
+    if not adapt_cfg.fresh_opt_per_trigger:
+        raise NotImplementedError(
+            "AdaptConfig.fresh_opt_per_trigger=False (a carried Adam state) "
+            "is not ported yet")
+    if prior.adapt_mask is not None:
+        raise NotImplementedError("Prior.adapt_mask is not ported yet")
+
+
 def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
     """Returns ``adapt(net, rgb_in, sigma, y_p, phi_p, y_f, phi_f, generator)``,
     which runs one trigger's Adam steps on ``net`` in place. ``net`` is the
@@ -153,14 +165,7 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
     of that standard deviation to its input, drawn from ``generator`` on the
     generator's device (so a CPU generator gives the same draw wherever the
     solver runs)."""
-    if adapt_cfg.crop is not None:
-        raise NotImplementedError("AdaptConfig.crop is not ported yet")
-    if not adapt_cfg.fresh_opt_per_trigger:
-        raise NotImplementedError(
-            "AdaptConfig.fresh_opt_per_trigger=False (a carried Adam state) "
-            "is not ported yet")
-    if prior.adapt_mask is not None:
-        raise NotImplementedError("Prior.adapt_mask is not ported yet")
+    check_adapt_supported(prior, adapt_cfg)
     stages = resolve_stages(adapt_cfg)
     filters = adapt_cfg.trainable_filter
 

@@ -4,6 +4,8 @@ The JAX package works in NHWC; these take NCHW, PyTorch's layout.
 ``space_to_depth`` / ``depth_to_space`` are ``F.pixel_unshuffle`` /
 ``F.pixel_shuffle``: output channel ``c*r*r + i*r + j`` holds input pixel
 offset ``(i, j)`` of channel ``c``, the ordering of the JAX helpers.
+``upsample_bilinear_align_corners`` is ``nn.UpsamplingBilinear2d``'s
+arithmetic, which the JAX helper spells out by hand.
 """
 
 from __future__ import annotations
@@ -29,3 +31,9 @@ def replication_pad_to_even(x: Tensor) -> tuple[Tensor, int, int]:
     if ph or pw:
         x = F.pad(x, (0, pw, 0, ph), mode="replicate")
     return x, ph, pw
+
+
+def upsample_bilinear_align_corners(x: Tensor, scale: int = 2) -> Tensor:
+    """Bilinear upsample of NCHW ``x`` by ``scale`` with ``align_corners=True``:
+    output sample ``o`` reads input coordinate ``o * (in - 1) / (out - 1)``."""
+    return F.interpolate(x, scale_factor=scale, mode="bilinear", align_corners=True)

@@ -1,6 +1,7 @@
 """Weight bridge between Flax variables and PyTorch state dicts
-(port of ``adaptivepnp_sci_tpu.models.convert``, FFDNet and FastDVDnet parts,
-and of the ``/``-keyed ``.npz`` reader of ``adaptivepnp_sci_tpu.train.trainer``).
+(port of ``adaptivepnp_sci_tpu.models.convert``, FFDNet, FastDVDnet and DDnet
+parts, and of the ``/``-keyed ``.npz`` reader of
+``adaptivepnp_sci_tpu.train.trainer``).
 
 The JAX package converts a torch conv weight ``(O, I, kh, kw)`` to a Flax
 kernel ``(kh, kw, I, O)``; here the bridge runs the other way as well, so
@@ -12,6 +13,12 @@ FastDVDnet: Flax scopes ``{temp1,temp2}/{inc,downc0,downc1,upc2,upc1,outc}/
 [cvblock/]{conv0,bn0,conv1,bn1}`` map onto the published model's
 ``convblock`` indices, which the port's modules keep. BatchNorm splits into
 ``params`` (``scale``, ``bias``) and ``batch_stats`` (``mean``, ``var``).
+
+DDnet: Flax scopes ``{temp1,temp11,temp2}/{inc_1,downc*,upc*,outc,fusion}/
+[cvblock/]{conv0,conv1}`` map onto the reference checkpoint's no-BN
+``convblock`` indices (a conv at 0 and 2 of its ``Sequential``); the
+``weight_tensor_*`` keep their names and shapes. All convolutions are
+bias-free.
 """
 
 from __future__ import annotations
@@ -146,6 +153,78 @@ def fastdvdnet_to_flax(state_dict: Mapping[str, Tensor]) -> dict:
             put("params", path, "scale" if leaf == "weight" else "bias", val)
         else:
             put("params", path, "kernel", conv_kernel(val))
+    return out
+
+
+# DDnet: index of a conv inside a no-BN (Conv, ReLU, Conv, ReLU) ``convblock``
+_NOBN_INDEX = {"conv0": "0", "conv1": "2"}
+_NOBN_SCOPE = {v: k for k, v in _NOBN_INDEX.items()}
+
+
+def _ddnet_torch_prefix(path: tuple[str, ...]) -> str:
+    """Flax module path ``(temp, block, [cvblock,] conv)`` -> state-dict prefix."""
+    temp, block, *rest = path
+    if rest[0] == "cvblock":  # nested CvBlock: index 2 of a down block, 0 of an up block
+        outer = "2" if block.startswith("downc") else "0"
+        return f"{temp}.{block}.convblock.{outer}.convblock.{_NOBN_INDEX[rest[1]]}"
+    if block.startswith("upc"):  # the conv before the pixel shuffle
+        return f"{temp}.{block}.convblock.1"
+    return f"{temp}.{block}.convblock.{_NOBN_INDEX[rest[0]]}"
+
+
+def _ddnet_flax_path(parts: list[str]) -> tuple[str, ...]:
+    """Inverse of :func:`_ddnet_torch_prefix` on a split state-dict prefix."""
+    temp, block, _, idx, *rest = parts
+    if rest:
+        return (temp, block, "cvblock", _NOBN_SCOPE[rest[1]])
+    if block.startswith("upc"):
+        return (temp, block, "conv0")
+    return (temp, block, _NOBN_SCOPE[idx])
+
+
+def ddnet_from_flax(variables: Mapping[str, Any]) -> dict[str, Tensor]:
+    """Flax DDnet variables (or the tree of ``weights/ddnet.npz``, numpy
+    leaves) -> state dict for :class:`adaptivepnp_sci_torch.models.ddnet.DDnet`."""
+    sd: dict[str, Tensor] = {}
+    for path, leaf, val in _leaves(variables["params"]):
+        if not path:  # weight_tensor_in / in2 / out
+            sd[leaf] = torch.from_numpy(np.array(val, np.float32))
+        else:
+            sd[f"{_ddnet_torch_prefix(path)}.weight"] = torch.from_numpy(
+                conv_weight(val.astype(np.float32)))
+    return sd
+
+
+def ddnet_to_flax(state_dict: Mapping[str, Tensor]) -> dict:
+    """Inverse of :func:`ddnet_from_flax`: a (possibly adapted) state dict ->
+    Flax variables with numpy leaves."""
+    params: dict = {}
+    for key, t in state_dict.items():
+        val = t.detach().cpu().numpy()
+        if key.startswith("weight_tensor"):
+            params[key] = val
+            continue
+        *parts, _ = key.split(".")
+        node = params
+        *scopes, conv = _ddnet_flax_path(parts)
+        for p in scopes:
+            node = node.setdefault(p, {})
+        node[conv] = {"kernel": conv_kernel(val)}
+    return {"params": params}
+
+
+def ddnet_state_dict_from_reference(sd: Mapping[str, Any]) -> dict[str, Tensor]:
+    """A reference DDnet checkpoint's state dict (tensors or numpy arrays) ->
+    state dict for :class:`~adaptivepnp_sci_torch.models.ddnet.DDnet`: the
+    DataParallel ``module.`` prefix and the unused noise-map ``inc`` blocks
+    are dropped, the rest loads as it is."""
+    out: dict[str, Tensor] = {}
+    for key, val in sd.items():
+        key = key.removeprefix("module.")
+        if key.split(".")[1:2] == ["inc"]:
+            continue
+        out[key] = torch.as_tensor(val if isinstance(val, Tensor) else np.asarray(val),
+                                   dtype=torch.float32)
     return out
 
 

@@ -9,7 +9,7 @@ returns to the host before the end.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, NamedTuple
+from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -34,6 +34,8 @@ class EndToEndResult(NamedTuple):
     ssim_per_frame: Tensor
     psnr_trace: Tensor
     variables: Any
+    #: (T + 1,) select_best ranking statistics (see ``ADMMResult``), or None
+    resid_trace: Tensor | None = None
 
 
 def reconstruct_single_dispatch(
@@ -46,6 +48,7 @@ def reconstruct_single_dispatch(
     orig: np.ndarray | Tensor | None = None,
     device: torch.device | str = "cuda",
     generator: torch.Generator | None = None,
+    demosaic_fn: Callable[[Tensor], Tensor] | None = None,
 ) -> EndToEndResult:
     """Reconstruct snapshot ``y (H, W)`` with masks ``phi (B, H, W)``.
 
@@ -54,10 +57,11 @@ def reconstruct_single_dispatch(
     ``orig (B, H, W)`` the result carries per-frame PSNR/SSIM and the
     per-iteration PSNR trace of the ADMM stage; without it they are zeros.
     ``generator`` feeds the adaptation input noise (None seeds one with 0).
+    ``demosaic_fn`` is a fixed-weight deep demosaicker
+    (:func:`~adaptivepnp_sci_torch.solvers.priors.ddnet_demosaic`), needed by
+    ``demosaic_method="ddnet"``.
     """
-    check_supported(admm_cfg)
-    if admm_cfg.denoiser != "tv" and prior is None:
-        raise ValueError(f"denoiser={admm_cfg.denoiser!r} requires a prior")
+    check_supported(admm_cfg, prior, demosaic_fn)
     y = as_f32(y, device)
     phi = as_f32(phi, device)
     orig_t = as_f32(orig, device) if orig is not None else None
@@ -67,9 +71,9 @@ def reconstruct_single_dispatch(
         x0 = physics.adjoint(y_p, phi_p)
         xw, _ = _gap_tv_packed(y_p, phi_p, x0, None, warm_cfg)
         net = working_copy(prior, params, device) if admm_cfg.denoiser != "tv" else None
-        theta, xhat, trace = run_admm(admm_cfg, prior, net, y, phi, xw, orig_t,
-                                      generator)
+        theta, xhat, trace, resids = run_admm(admm_cfg, prior, net, y, phi, xw, orig_t,
+                                              generator, demosaic_fn)
         x_bayer = bayer.unpack(theta)
         p, s = frame_metrics(orig_t, x_bayer)
     variables = net.state_dict() if net is not None else params
-    return EndToEndResult(xhat, x_bayer, p, s, trace, variables)
+    return EndToEndResult(xhat, x_bayer, p, s, trace, variables, resids)

@@ -1,10 +1,11 @@
 """Denoiser-prior plugin interface for the PnP solvers
-(port of ``adaptivepnp_sci_tpu.solvers.priors``, FFDNet and FastDVDnet parts).
+(port of ``adaptivepnp_sci_tpu.solvers.priors``).
 
 A prior names a template module and how to apply it over the whole
 ``(B, H, W, 3)`` frame cube, plus what online adaptation needs. The solvers
 never run or adapt the template itself: they load the caller's parameters
 into a private copy (:func:`working_copy`) and return that copy's state dict.
+The DDnet demosaicker (:func:`ddnet_demosaic`) runs on such a copy too.
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ from typing import Callable, Mapping, NamedTuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch import Tensor
+
+from adaptivepnp_sci_torch.ops.bayer import embed_rgb
 
 
 class Prior(NamedTuple):
@@ -105,13 +109,62 @@ def fastdvd_prior(model: nn.Module, window: int = 5, window_chunk: int | None = 
                  apply_adapt=chunked(adapt_window_chunk or window_chunk))
 
 
-def working_copy(prior: Prior, params: Mapping[str, Tensor] | None,
-                 device: torch.device | str) -> nn.Module:
-    """A private float32 copy of ``prior.model`` on ``device`` holding
-    ``params`` (the template's own weights when None), in eval mode.
-    Neither ``prior.model`` nor ``params`` is changed by what the solver does
-    to the copy."""
-    net = copy.deepcopy(prior.model)
+def module_copy(model: nn.Module, params: Mapping[str, Tensor] | None,
+                device: torch.device | str) -> nn.Module:
+    """A private float32 copy of ``model`` on ``device`` holding ``params``
+    (the template's own weights when None), in eval mode. Neither ``model``
+    nor ``params`` is changed by what is done to the copy."""
+    net = copy.deepcopy(model)
     if params is not None:
         net.load_state_dict(params)
     return net.to(device=device, dtype=torch.float32).eval()
+
+
+def working_copy(prior: Prior, params: Mapping[str, Tensor] | None,
+                 device: torch.device | str) -> nn.Module:
+    """The solver's private float32 copy of ``prior.model`` (:func:`module_copy`)."""
+    return module_copy(prior.model, params, device)
+
+
+def ddnet_demosaic_param(model: nn.Module, window: int = 5
+                         ) -> Callable[[nn.Module, Tensor], Tensor]:
+    """Deep joint demosaicker for the solver: ``(net, (B, H, W)) -> (B, H, W, 3)``
+    with ``net`` a DDnet (``model`` or a copy of it; ``model`` is the template
+    the solver copies for in-scan adaptation).
+
+    Embeds each Bayer frame as sparse RGB, reflect-pads H and W up to
+    multiples of 4 (the U-Nets downsample twice), gathers circular 5-frame
+    windows and runs DDnet on all B windows as one batch, then crops.
+    """
+    del model  # the architecture travels with ``net``
+
+    def apply(net: nn.Module, mosaic_frames: Tensor) -> Tensor:
+        b, h, w = mosaic_frames.shape
+        hp, wp = (-h) % 4, (-w) % 4
+        rgb = embed_rgb(mosaic_frames)  # (B, H, W, 3)
+        if hp or wp:
+            rgb = F.pad(rgb.permute(0, 3, 1, 2), (0, wp, 0, hp), mode="reflect")
+            rgb = rgb.permute(0, 2, 3, 1)
+        out = net(rgb[window_indices(b, window).to(rgb.device)])
+        return out[:, :h, :w]
+
+    return apply
+
+
+def ddnet_demosaic(model: nn.Module, params: Mapping[str, Tensor] | None = None,
+                   window: int = 5) -> Callable[[Tensor], Tensor]:
+    """Fixed-weight form of :func:`ddnet_demosaic_param`: ``(B, H, W) ->
+    (B, H, W, 3)``, run without gradient on a private float32 copy of
+    ``model`` holding ``params`` (the template's own weights when None). The
+    copy follows its input's device; ``model`` and ``params`` are never
+    changed."""
+    apply_p = ddnet_demosaic_param(model, window)
+    net = module_copy(model, params, "cpu")
+
+    @torch.no_grad()
+    def apply(mosaic_frames: Tensor) -> Tensor:
+        if net.weight_tensor_in.device != mosaic_frames.device:
+            net.to(mosaic_frames.device)
+        return apply_p(net, mosaic_frames)
+
+    return apply

@@ -10,12 +10,15 @@ Run from the repository root:
 It builds the CUDA kernels from ``adaptivepnp_sci_torch/csrc/``, holds each
 against its plain PyTorch version on the card (both designs of the TV and
 conv-pair kernels, timed side by side), holds the kernel paths
-against the plain paths on the CPU end to end, and drives two 512x512x8
+against the plain paths on the CPU end to end, and drives three 512x512x8
 reconstructions: the flagship (GAP-TV warm start, two-stage ADMM with
 FFDNet-color nc = 96, nb = 12 and online adaptation, random weights made
-from a seed) and the FastDVDnet prior path (trained weights from
+from a seed), the FastDVDnet prior path (trained weights from
 ``weights/fastdvd.npz``, in float32 and in bf16 with the fused conv-pair
-kernel). Each phase prints one JSON line; any failure exits nonzero. The last line is
+kernel) and the deep-demosaicking row of the scene table (DDnet from
+``weights/ddnet.npz`` and FastDVDnet, both in bf16, with the held-out
+``select_best`` guard; also once with the demosaicker adapted in the loop).
+Each phase prints one JSON line; any failure exits nonzero. The last line is
 ``{"ok": true, "device": {...}}``. It exits 1 without printing a result when
 no CUDA device is present, and fails when the package is not beside it.
 """
@@ -34,7 +37,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "k1", "k2", "k3", "slice_parity", "flagship",
-          "fastdvd_parity", "fastdvd", "kernels")
+          "fastdvd_parity", "fastdvd", "ddnet_parity", "ddnet", "kernels")
 
 #: NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth, non-tensor fp32 rate and
 #: dense bf16 rate of the tensor cores
@@ -80,6 +83,22 @@ FASTDVD_PARITY = {
     "bf16": [((12, 0), {"x_update": 52, "tv_chambolle": 40, "convpair": 96}, 0.15, 2e-2, "max"),
              (FASTDVD_ITERS, FASTDVD_LAUNCHES["bf16"], 1.0, 3e-2, "rms")],
 }
+
+
+#: the deep-demosaicking path: ``admm_config_for("Bosphorus", "fastdvd",
+#: deep_demosaicking=True)``, sigma (8, 6)/255 x (24, 12) iterations, one
+#: trigger at k = 25 (2 Adam steps, lr 2e-7), rho 0.55, the held-out guard at
+#: 0.05. Its launches per reconstruction: 40 warm-start + 36 ADMM + 40 masked
+#: GAP-TV (the guard's candidate 0) x-updates, 40 + 40 TV proxes, and the 8
+#: CvBlocks of each of the 36 no-grad bf16 FastDVDnet calls; DDnet (C = 40,
+#: 80) and the trigger's forward launch no conv pair
+DDNET_LAUNCHES = {"x_update": 116, "tv_chambolle": 80, "convpair": 288}
+#: the parity run of that row at 64x64x8 in float32: schedule (6, 4), the
+#: trigger at k = 5; 40 + 10 + 40 x-updates, 40 + 40 TV proxes
+DDNET_PARITY_ITERS = (6, 4)
+DDNET_PARITY_LAUNCHES = {"x_update": 90, "tv_chambolle": 80, "convpair": 0}
+#: the pipeline's defaults for the in-scan demosaicker adaptation
+DM_UPDATE = dict(lr=1e-6, update_per_iter=1)
 
 
 class SmokeFailure(RuntimeError):
@@ -193,6 +212,43 @@ def fastdvd_breakdown(torch, sc, params, dtype, remat: bool) -> dict:
     return out
 
 
+def ddnet_breakdown(torch, sc, ddnet_params, row) -> dict:
+    """Device time of the deep-demosaicking row's own parts at 512x512x8
+    (CUDA events, median): one bf16 DDnet demosaic call (and one in float32),
+    and the guard's masked 40-iteration GAP-TV."""
+    from adaptivepnp_sci_torch import DDnet, ddnet_demosaic
+    from adaptivepnp_sci_torch.ab_convpair import time_ms
+    from adaptivepnp_sci_torch.ops import bayer, physics
+    from adaptivepnp_sci_torch.solvers.gap_tv import GapTVConfig, _gap_tv_packed
+    from adaptivepnp_sci_torch.solvers.two_stage_admm import full_f32, holdout_mask
+
+    dev = torch.device("cuda")
+    mosaic = torch.from_numpy(sc.orig_bayer).to(dev)
+    y = torch.from_numpy(sc.meas).to(dev)
+    phi = torch.from_numpy(sc.mask).to(dev)
+    keep = 1.0 - holdout_mask(row.select_best_seed, row.select_best_holdout, tuple(y.shape), dev)
+    y_p, phi_p = bayer.pack(y * keep), bayer.pack(phi * keep[None])
+    dm16 = ddnet_demosaic(DDnet(dtype=torch.bfloat16), ddnet_params)
+    dm32 = ddnet_demosaic(DDnet(), ddnet_params)
+    with full_f32(), torch.no_grad():
+        return {
+            "ddnet_bf16_ms": time_ms(lambda: dm16(mosaic), n=5),
+            "ddnet_fp32_ms": time_ms(lambda: dm32(mosaic), n=5),
+            "masked_gap_tv_40_ms": time_ms(lambda: _gap_tv_packed(
+                y_p, phi_p, physics.adjoint(y_p, phi_p), None,
+                GapTVConfig(iters=row.select_best_warm_iters)), n=3),
+        }
+
+
+def guard_pick(res) -> dict:
+    """The guard's chosen candidate (0 = the warm start, k + 1 = iterate k)
+    and the gap from its ranking statistic to the next best."""
+    r = res.resid_trace.cpu()
+    order = r.sort(stable=True).indices
+    return {"pick": int(order[0]), "resid_best": float(r[order[0]]),
+            "resid_gap_to_second": float(r[order[1]] - r[order[0]])}
+
+
 def flagship_profile(torch, run, trace: str | None) -> dict:
     """One reconstruction under ``torch.profiler``: device busy time (the sum
     of device self time; one stream, so nothing overlaps), the wall time,
@@ -247,21 +303,28 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    if "kernels" in phases and not {"k1", "k2", "k3", "flagship", "fastdvd"} <= phases:
-        ap.error("the kernels phase needs the k1, k2, k3, flagship and fastdvd phases")
+    if "kernels" in phases and not {"k1", "k2", "k3", "flagship", "fastdvd", "ddnet"} <= phases:
+        ap.error("the kernels phase needs the k1, k2, k3, flagship, fastdvd and ddnet phases")
     from adaptivepnp_sci_torch import (
         ADMMConfig,
         AdaptConfig,
+        DDnet,
         FastDVDnet,
         GapTVConfig,
+        admm_config_for,
+        ddnet_demosaic,
         fastdvd_prior,
         ffdnet_prior,
         gap_tv,
+        make_dm_spec,
         reconstruct_single_dispatch,
+        two_stage_admm,
     )
     from adaptivepnp_sci_torch.ab_convpair import library_pair, make_inputs, time_ms
+    from adaptivepnp_sci_torch.adapt.online import make_schedule
     from adaptivepnp_sci_torch.data.synthetic import make_scene
     from adaptivepnp_sci_torch.models.convert import (
+        ddnet_from_flax,
         fastdvdnet_from_flax,
         ffdnet_from_flax,
         load_variables_npz,
@@ -695,13 +758,166 @@ def main(argv: list[str]) -> int:
                 require(dict(cuda_kernels.launches) == FASTDVD_LAUNCHES["bf16"],
                         f"fastdvd profile: launches {cuda_kernels.launches}")
 
+    # ---------------------------------------------- deep demosaicking row
+    ddnet_params = ddnet_from_flax(load_variables_npz(str(ROOT / "weights" / "ddnet.npz")))
+    row = admm_config_for("Bosphorus", "fastdvd", deep_demosaicking=True)
+    require((row.sigma, row.iters, row.rho, row.select_best_holdout, row.demosaic_method)
+            == ((8 / 255, 6 / 255), (24, 12), 0.55, 0.05, "ddnet")
+            and np.nonzero(make_schedule(row.sigma, row.iters, row.adapt)[1])[0].tolist() == [25],
+            f"ddnet: the scene table's row changed: {row}")
+
+    def run_row(scene, prior, dm, device, cfg=row, generator=None):
+        """The row end to end through ``reconstruct_single_dispatch``."""
+        return reconstruct_single_dispatch(
+            scene.meas, scene.mask, GapTVConfig(iters=40), cfg, prior, fastdvd_params,
+            orig=scene.orig_bayer, device=device, generator=generator, demosaic_fn=dm)
+
+    def run_row_dm_update(scene, prior, spec, device, cfg=row, generator=None):
+        """The row with the demosaicker adapted in the loop: GAP-TV, then
+        ``two_stage_admm`` with ``dm_spec``."""
+        warm = gap_tv(scene.meas, scene.mask, GapTVConfig(iters=40), device=device)
+        return two_stage_admm(scene.meas, scene.mask, cfg, prior, fastdvd_params,
+                              warm.x_bayer, scene.orig_bayer, device, generator,
+                              dm_spec=spec, dm_variables=ddnet_params)
+
+    # ------------------------------------------------------- ddnet parity
+    if "ddnet_parity" in phases:
+        import dataclasses
+
+        sc = make_scene(b=8, h=64, w=64, seed=42)
+        cfg = dataclasses.replace(row, iters=DDNET_PARITY_ITERS, adapt=dataclasses.replace(
+            row.adapt, interval_iter=5))
+        require(np.nonzero(make_schedule(cfg.sigma, cfg.iters, cfg.adapt)[1])[0].tolist() == [5],
+                "ddnet_parity: trigger")
+        prior = fastdvd_prior(FastDVDnet())
+        runs = {
+            "ddnet_fixed": lambda dev: run_row(sc, prior, ddnet_demosaic(DDnet(), ddnet_params),
+                                               dev, cfg, torch.Generator().manual_seed(0)),
+            "dm_update_carried": lambda dev: run_row_dm_update(
+                sc, prior, make_dm_spec(DDnet(), **DM_UPDATE), dev, cfg,
+                torch.Generator().manual_seed(0)),
+            "dm_update_fresh": lambda dev: run_row_dm_update(
+                sc, prior, make_dm_spec(DDnet(), **DM_UPDATE, fresh_opt=True), dev, cfg,
+                torch.Generator().manual_seed(0)),
+        }
+        for name, run in runs.items():
+            t0 = time.perf_counter()
+            cpu = run("cpu")
+            cpu_s = time.perf_counter() - t0
+            cuda_kernels.reset_launches()
+            gpu = run("cuda")
+            torch.cuda.synchronize()
+            counts = dict(cuda_kernels.launches)
+            require(counts == DDNET_PARITY_LAUNCHES, f"ddnet_parity {name}: launches {counts}")
+            require(bool(torch.isfinite(gpu.x_bayer).all()), f"ddnet_parity {name}: non-finite")
+            dpsnr = (gpu.psnr_per_frame.cpu() - cpu.psnr_per_frame).abs()
+            dx = float((gpu.x_bayer.cpu() - cpu.x_bayer).abs().max())
+            picks = {"cuda": guard_pick(gpu), "cpu": guard_pick(cpu)}
+            fields = {}
+            if name != "ddnet_fixed":
+                fields["max_abs_d_dm_variables"] = max(
+                    float((gpu.dm_variables[k].cpu() - cpu.dm_variables[k]).abs().max())
+                    for k in cpu.dm_variables)
+            emit("ddnet_parity", run=name, shape=[8, 64, 64], iters=list(cfg.iters),
+                 trigger_k=5, dtype="float32", weights="weights/ddnet.npz, weights/fastdvd.npz",
+                 max_dpsnr_db=float(dpsnr.max()), dpsnr_per_frame_db=dpsnr.tolist(),
+                 max_abs_dx_bayer=dx, bar="0.05 dB, 1e-3, the same pick", picks=picks,
+                 psnr_cuda=gpu.psnr_per_frame.mean().item(),
+                 psnr_cpu=cpu.psnr_per_frame.mean().item(), cpu_seconds=cpu_s,
+                 launches=counts, **fields)
+            require(picks["cuda"]["pick"] == picks["cpu"]["pick"],
+                    f"ddnet_parity {name}: picks differ {picks}")
+            require(float(dpsnr.max()) <= 0.05 and dx <= 1e-3,
+                    f"ddnet_parity {name}: dPSNR {float(dpsnr.max())} dB, max |dx| {dx}")
+
+    # -------------------------------------------------------------- ddnet
+    if "ddnet" in phases:
+        prior = fastdvd_prior(FastDVDnet(**modes["bf16"]))
+        dm = ddnet_demosaic(DDnet(dtype=torch.bfloat16), ddnet_params)
+        for style in ("smooth", "leaves"):
+            sc = make_scene(b=8, h=512, w=512, seed=42, style=style)
+            warm = gap_tv(sc.meas, sc.mask, GapTVConfig(iters=40), orig_bayer=sc.orig_bayer,
+                          device="cuda")
+            warm_psnr = warm.psnr_per_frame.mean().item()
+            secs = []
+            for rep in range(4):  # one warm-up, then three timed
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                cuda_kernels.reset_launches()
+                t0 = time.perf_counter()
+                res = run_row(sc, prior, dm, "cuda")
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                counts = dict(cuda_kernels.launches)
+                require(counts == DDNET_LAUNCHES, f"ddnet {style}: launches {counts}")
+                by_shape = dict(cuda_kernels.convpair_launches)
+                require(by_shape == {shp: 144 for shp in CONVPAIR_MAIN_SHAPES.values()},
+                        f"ddnet {style}: conv pair launches {by_shape}")
+                report.setdefault("launches_ddnet", counts)
+                report.setdefault("launches_convpair_ddnet", by_shape)
+                if rep:
+                    secs.append(dt)
+            peak = torch.cuda.max_memory_allocated()
+            require(tuple(res.x_bayer.shape) == (8, 512, 512)
+                    and tuple(res.x_rgb.shape) == (8, 512, 512, 3), "ddnet: shapes")
+            require(bool(torch.isfinite(res.x_bayer).all() & torch.isfinite(res.x_rgb).all()),
+                    f"ddnet {style}: non-finite output")
+            require(tuple(res.resid_trace.shape) == (37,), "ddnet: guard candidates")
+            med = statistics.median(secs)
+            emit("ddnet", scene=style, mode="bf16 DDnet + bf16 FastDVDnet (remat off)",
+                 shape=[8, 512, 512], config='admm_config_for("Bosphorus", "fastdvd", True)',
+                 weights="weights/ddnet.npz, weights/fastdvd.npz", seconds_per_snapshot=med,
+                 seconds_runs=secs, frames_per_s=8 / med, warm_start_psnr_db=warm_psnr,
+                 warm_start_ssim=warm.ssim_per_frame.mean().item(),
+                 psnr_db=res.psnr_per_frame.mean().item(), ssim=res.ssim_per_frame.mean().item(),
+                 gain_over_warm_start_db=res.psnr_per_frame.mean().item() - warm_psnr,
+                 guard=guard_pick(res), peak_mem_bytes=peak,
+                 launches_per_reconstruction=counts, **card)
+            if style != "smooth":
+                continue
+            ddnet_calls = 37  # 36 iterations and the guard's candidate 0
+            parts = {**ddnet_breakdown(torch, sc, ddnet_params, row),
+                     **fastdvd_breakdown(torch, sc, fastdvd_params, torch.bfloat16, False)}
+            emit("ddnet_breakdown", **parts, ddnet_calls=ddnet_calls,
+                 ddnet_share_of_wall=ddnet_calls * parts["ddnet_bf16_ms"] / (med * 1e3),
+                 **card)
+            cuda_kernels.reset_launches()
+            emit("ddnet_profile", **flagship_profile(torch, lambda: run_row(sc, prior, dm, "cuda"),
+                                                     None), **card)
+            require(dict(cuda_kernels.launches) == DDNET_LAUNCHES,
+                    f"ddnet profile: launches {cuda_kernels.launches}")
+            # the same row with the demosaicker adapted in the loop, at the
+            # pipeline's defaults (one Adam step an iteration, carried Adam)
+            spec = make_dm_spec(DDnet(dtype=torch.bfloat16), **DM_UPDATE)
+            secs = []
+            for _ in range(2):  # a warm-up (first backward calls), then one timed
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                cuda_kernels.reset_launches()
+                t0 = time.perf_counter()
+                upd = run_row_dm_update(sc, prior, spec, "cuda")
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                counts = dict(cuda_kernels.launches)
+                require(counts == DDNET_LAUNCHES, f"ddnet dm_update: launches {counts}")
+            require(bool(torch.isfinite(upd.x_bayer).all()), "ddnet dm_update: non-finite")
+            emit("ddnet_dm_update", scene=style, lr=DM_UPDATE["lr"],
+                 steps_per_iteration=DM_UPDATE["update_per_iter"], optimizer="carried Adam",
+                 seconds_per_snapshot=secs[1], seconds_warm_up=secs[0],
+                 psnr_db=upd.psnr_per_frame.mean().item(), ssim=upd.ssim_per_frame.mean().item(),
+                 guard=guard_pick(upd), peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                 launches_per_reconstruction=counts, **card)
+
     # ------------------------------------------------------------- kernels
     if "kernels" in phases:
         # launches on the main paths: the flagship's for its two kernels, the
-        # bf16 FastDVDnet reconstruction's for the conv pair
+        # bf16 FastDVDnet reconstruction's for the conv pair; and on the
+        # deep-demosaicking row
         launches = dict(report["launches"])
+        launches_ddnet = dict(report["launches_ddnet"])
         for name, shape in CONVPAIR_MAIN_SHAPES.items():
             launches[f"convpair_{name}"] = report["launches_convpair"][shape]
+            launches_ddnet[f"convpair_{name}"] = report["launches_convpair_ddnet"][shape]
         pallas = {"x_update": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:58",
                   "tv_chambolle": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:93",
                   "convpair": "scripts/ab_pallas_convpair.py:47"}
@@ -714,11 +930,13 @@ def main(argv: list[str]) -> int:
             rows.append({"name": name, "route": "cuda",
                          "source": f"adaptivepnp_sci_torch/csrc/{sources[kernel]}",
                          "replaces": pallas[kernel], "launches": launches[name],
+                         "launches_ddnet_row": launches_ddnet[name],
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                          "previous_ms": r.get("previous_ms"), "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                          "library_ms": r.get("library_ms")})
-        require(all(row["launches"] > 0 for row in rows), f"a kernel was never launched: {rows}")
+        require(all(r["launches"] > 0 and r["launches_ddnet_row"] > 0 for r in rows),
+                f"a kernel was never launched: {rows}")
         print(json.dumps({"kernels": rows}), flush=True)
 
     foreign = sorted(m for m in sys.modules

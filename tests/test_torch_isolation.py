@@ -15,11 +15,14 @@ _RUN = r"""
 import sys
 import numpy as np
 import torch
-from adaptivepnp_sci_torch import (ADMMConfig, AdaptConfig, FastDVDnet, FFDNet, GapTVConfig,
-                                   fastdvd_prior, ffdnet_prior, reconstruct_single_dispatch)
+from adaptivepnp_sci_torch import (ADMMConfig, AdaptConfig, DDnet, FastDVDnet, FFDNet,
+                                   GapTVConfig, admm_config_for, ddnet_demosaic, fastdvd_prior,
+                                   ffdnet_prior, make_dm_spec, reconstruct_single_dispatch)
 from adaptivepnp_sci_torch import ab_convpair
+from adaptivepnp_sci_torch.adapt.ddnet_online import make_dm_adapt_fn
 from adaptivepnp_sci_torch.data.synthetic import make_scene
-from adaptivepnp_sci_torch.models.convert import fastdvdnet_from_flax, load_variables_npz
+from adaptivepnp_sci_torch.models.convert import (ddnet_from_flax, fastdvdnet_from_flax,
+                                                  load_variables_npz)
 from adaptivepnp_sci_torch.ops import cuda_kernels
 
 sc = make_scene(b=8, h=16, w=16, seed=0)
@@ -38,6 +41,15 @@ for dtype in (None, torch.bfloat16):
                    adapt=AdaptConfig(lr=2e-7, interval_iter=2)),
         fastdvd_prior(FastDVDnet(dtype=dtype)), params, orig=sc.orig_bayer, device="cpu")
     assert res.x_bayer.shape == (8, 16, 16) and bool(res.x_bayer.isfinite().all())
+# the deep-demosaicking modules: the scene table's row, DDnet fixed and adapted
+dd = ddnet_from_flax(load_variables_npz("weights/ddnet.npz"))
+row = admm_config_for("Bosphorus", "fastdvd", deep_demosaicking=True)
+assert row.demosaic_method == "ddnet" and row.select_best_holdout == 0.05
+rgb = ddnet_demosaic(DDnet(), dd)(torch.from_numpy(sc.orig_bayer))
+assert rgb.shape == (8, 16, 16, 3) and bool(rgb.isfinite().all())
+assert make_dm_spec(DDnet()).update_per_iter == 1
+state, _, loss = make_dm_adapt_fn(DDnet())(dd, None, torch.from_numpy(sc.orig_bayer))
+assert state.keys() == dd.keys() and bool(loss.isfinite())
 try:
     ab_convpair.main(32, 16, 1)
 except RuntimeError as err:

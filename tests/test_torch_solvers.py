@@ -248,15 +248,17 @@ def test_fastdvd_noise_is_drawn_from_the_generator():
 
 def test_unported_options_raise():
     sc = tmake_scene(b=8, h=16, w=16, seed=0)
-    for kw in ({"select_best": True}, {"closed_form_demosaic": True},
-               {"faithful_aliasing": True}, {"denoiser_relax": 0.5},
-               {"demosaic_method": "menon2007"}, {"denoiser": "gap_deep"},
-               {"select_best_holdout": 0.05}):
+    for kw in ({"demosaic_method": "menon2007"}, {"denoiser": "gap_deep"}):
         cfg = tadmm.ADMMConfig(sigma=(0.1,), iters=(1,), **{"denoiser": "tv", **kw})
         with pytest.raises(NotImplementedError):
             tadmm.two_stage_admm(sc.meas, sc.mask, cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         tmake_scene(b=2, h=16, w=16, style="photo")
+    # the guard, relaxation, closed form and aliasing modes are ported
+    for kw in ({"select_best": True}, {"select_best": True, "select_best_holdout": 0.05},
+               {"denoiser_relax": 0.5}, {"faithful_aliasing": True}):
+        cfg = tadmm.ADMMConfig(sigma=(0.1,), iters=(1,), **{"denoiser": "tv", **kw})
+        assert tadmm.two_stage_admm(sc.meas, sc.mask, cfg, device="cpu").x_bayer.shape == (8, 16, 16)
     # FastDVDnet is ported: without a prior it is a usage error, and its
     # options that still wait raise
     fast = tadmm.ADMMConfig(sigma=(0.1,), iters=(1,), denoiser="fastdvd")
