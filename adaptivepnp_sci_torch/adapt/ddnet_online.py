@@ -9,12 +9,13 @@ module and weights are never changed.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, Sequence
 
 import torch
 import torch.nn as nn
 from torch import Tensor
 
+from adaptivepnp_sci_torch.adapt.online import backward_mean
 from adaptivepnp_sci_torch.ops import bayer
 from adaptivepnp_sci_torch.solvers.priors import module_copy, window_indices
 
@@ -29,12 +30,16 @@ def dm_consistency_loss(net: nn.Module, mosaic_frames: Tensor, window: int = 5) 
     return torch.mean((bayer.mosaic(out) - mosaic_frames) ** 2) / 3.0
 
 
-def dm_adam_steps(net: nn.Module, opt: torch.optim.Adam, loss_fn: Callable[[], Tensor],
-                  lr: float, steps: int, fresh_opt: bool) -> tuple[torch.optim.Adam, Tensor]:
-    """``steps`` Adam steps on ``loss_fn()`` over all parameters of ``net``,
-    with gradients on even inside the caller's ``no_grad``; with ``fresh_opt`` a new
-    Adam replaces ``opt`` before every step. Returns the optimizer last used
-    and the loss of the last step, before its update."""
+def dm_adam_steps(net: nn.Module, opt: torch.optim.Adam,
+                  loss_fns: Sequence[Callable[[], Tensor]], lr: float, steps: int,
+                  fresh_opt: bool) -> tuple[torch.optim.Adam, Tensor]:
+    """``steps`` Adam steps on the mean of ``loss_fns`` (one closure per
+    measurement that shares the update; see
+    :func:`~adaptivepnp_sci_torch.adapt.online.backward_mean`) over all
+    parameters of ``net``, with gradients on even inside the caller's
+    ``no_grad``; with ``fresh_opt`` a new Adam replaces ``opt`` before every
+    step. Returns the optimizer last used and the loss of the last step,
+    before its update."""
     params = list(net.parameters())
     loss = torch.zeros((), device=params[0].device)
     with torch.enable_grad():
@@ -42,8 +47,7 @@ def dm_adam_steps(net: nn.Module, opt: torch.optim.Adam, loss_fn: Callable[[], T
             if fresh_opt:
                 opt = torch.optim.Adam(params, lr=lr)
             net.zero_grad(set_to_none=True)
-            loss = loss_fn()
-            loss.backward()
+            loss = backward_mean(loss_fns)
             opt.step()
     net.zero_grad(set_to_none=True)
     return opt, loss.detach()
@@ -69,7 +73,7 @@ def make_dm_adapt_fn(model: nn.Module, lr: float = 1e-6, update_per_iter: int = 
         if optimizer_state is not None:
             opt.load_state_dict(optimizer_state)
         frames = mosaic_frames.detach()
-        opt, loss = dm_adam_steps(net, opt, lambda: dm_consistency_loss(net, frames, window),
+        opt, loss = dm_adam_steps(net, opt, [lambda: dm_consistency_loss(net, frames, window)],
                                   lr, update_per_iter, fresh_opt)
         return net.state_dict(), opt.state_dict(), loss
 

@@ -7,15 +7,22 @@ iterations, fired on a per-iteration mask precomputed on the host
 ``k > initial_iter and k % interval_iter == 0`` and the update-count cap.
 
 Each stage of each trigger builds a fresh ``torch.optim.Adam`` at the stage's
-lr, as the reference does. The optimizer steps the solver's private copy of
-the denoiser (:func:`adaptivepnp_sci_torch.solvers.priors.working_copy`),
-never the caller's module.
+lr, as the reference does; with ``fresh_opt_per_trigger=False`` one Adam
+(:func:`carried_adam`) lives through every trigger and, carried by the
+drivers, across measurements, its lr set to each stage's in turn. The
+optimizer steps the solver's private copy of the denoiser
+(:func:`adaptivepnp_sci_torch.solvers.priors.working_copy`), never the
+caller's module.
+
+Several measurements (the tiles of one scene) can share one adaptation: the
+loss is then the mean of their per-item losses, whose gradient is the mean of
+the per-item gradients that the JAX package ``pmean``-s over its tile axis.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Callable
+from typing import TYPE_CHECKING, Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -37,8 +44,9 @@ class AdaptConfig:
     ``lr[i]``, with a fresh optimizer per stage. A scalar on either field
     broadcasts against the other.
 
-    ``fresh_opt_per_trigger`` must stay True here: carrying one Adam state
-    through the solve is not ported yet.
+    ``fresh_opt_per_trigger`` (default True) builds a fresh Adam for every
+    stage of every trigger, as the reference does; False carries one Adam
+    state through the solve and across measurements (:func:`carried_adam`).
 
     ``trainable_filter``: optional tuple of substrings of parameter names
     (PyTorch names, e.g. ``"model.0."``); when set, only matching parameters
@@ -147,19 +155,50 @@ def check_adapt_supported(prior: "Prior", adapt_cfg: AdaptConfig) -> None:
     """Raise ``NotImplementedError`` for an adaptation option not ported yet."""
     if adapt_cfg.crop is not None:
         raise NotImplementedError("AdaptConfig.crop is not ported yet")
-    if not adapt_cfg.fresh_opt_per_trigger:
-        raise NotImplementedError(
-            "AdaptConfig.fresh_opt_per_trigger=False (a carried Adam state) "
-            "is not ported yet")
     if prior.adapt_mask is not None:
         raise NotImplementedError("Prior.adapt_mask is not ported yet")
 
 
+def carried_adam(net: nn.Module, adapt_cfg: AdaptConfig,
+                 opt_state: Mapping[str, Any] | None = None) -> torch.optim.Adam | None:
+    """The Adam that ``fresh_opt_per_trigger=False`` carries: over every
+    parameter of ``net`` (those outside ``trainable_filter`` get zero
+    gradients, so their moments and values stay as they are, as in the JAX
+    package), from the ``torch.optim.Adam`` state dict ``opt_state`` (None:
+    a new one). None when the schedule builds a fresh Adam per stage."""
+    if adapt_cfg.fresh_opt_per_trigger:
+        return None
+    opt = torch.optim.Adam(net.parameters(), lr=first_lr(adapt_cfg))
+    if opt_state is not None:
+        opt.load_state_dict(opt_state)
+    return opt
+
+
+def backward_mean(losses: Sequence[Callable[[], Tensor]]) -> Tensor:
+    """Accumulate the gradient of the mean of ``losses`` (closures), one
+    loss's graph at a time so that peak memory is that of one; returns the
+    mean loss, detached."""
+    n = len(losses)
+    total = None
+    for loss_fn in losses:
+        loss = loss_fn()
+        (loss if n == 1 else loss / n).backward()
+        total = loss.detach() if total is None else total + loss.detach()
+    return total if n == 1 else total / n
+
+
 def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
-    """Returns ``adapt(net, rgb_in, sigma, y_p, phi_p, y_f, phi_f, generator)``,
-    which runs one trigger's Adam steps on ``net`` in place. ``net`` is the
-    solver's private working copy, in eval mode: BatchNorm's running
-    statistics are buffers, not parameters, and stay as they are.
+    """Returns ``adapt(net, rgb_in, sigma, y_p, phi_p, y_f, phi_f, generator,
+    opt)``, which runs one trigger's Adam steps on ``net`` in place. ``net`` is
+    the solver's private working copy, in eval mode: BatchNorm's running
+    statistics are buffers, not parameters, and stay as they are. ``opt`` is
+    the :func:`carried_adam` when the schedule carries one (None otherwise);
+    its lr is set to each stage's before that stage's steps.
+
+    ``rgb_in (N, B, H, W, 3)`` with an item axis adapts on ``N`` measurements
+    at once: ``y_p (N, 4, h, w)``, ``y_f (N, H, W)``, and ``phi_p``/``phi_f``
+    per item or shared; the loss is the mean of the per-item losses, each
+    item's gradient accumulated before the next item's forward.
 
     With ``prior.adapt_noise_std > 0`` the trigger first adds gaussian noise
     of that standard deviation to its input, drawn from ``generator`` on the
@@ -168,27 +207,45 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
     check_adapt_supported(prior, adapt_cfg)
     stages = resolve_stages(adapt_cfg)
     filters = adapt_cfg.trainable_filter
+    fresh = adapt_cfg.fresh_opt_per_trigger
 
     def adapt(net: nn.Module, rgb_in: Tensor, sigma: Tensor, y_p: Tensor, phi_p: Tensor,
-              y_f: Tensor, phi_f: Tensor, generator: torch.Generator | None = None) -> None:
+              y_f: Tensor, phi_f: Tensor, generator: torch.Generator | None = None,
+              opt: torch.optim.Adam | None = None) -> None:
+        if not fresh and opt is None:
+            raise ValueError("fresh_opt_per_trigger=False needs the carried Adam (carried_adam)")
         if prior.adapt_noise_std > 0:
             if generator is None:
                 raise ValueError("the adaptation noise needs a torch.Generator")
             noise = torch.randn(rgb_in.shape, generator=generator, dtype=rgb_in.dtype,
                                 device=generator.device)
             rgb_in = rgb_in + prior.adapt_noise_std * noise.to(rgb_in.device)
-        trainable = [
-            p for name, p in net.named_parameters()
-            if filters is None or any(f in name for f in filters)
-        ]
-        loss = measurement_loss_fn(prior, net, rgb_in.detach(), sigma, y_p, phi_p,
-                                   y_f, phi_f)
+        rgb_in = rgb_in.detach()
+        if rgb_in.dim() == 5:
+            per_phi = phi_f.dim() == 4
+            losses = [measurement_loss_fn(prior, net, rgb_in[i], sigma, y_p[i],
+                                          phi_p[i] if per_phi else phi_p, y_f[i],
+                                          phi_f[i] if per_phi else phi_f)
+                      for i in range(rgb_in.shape[0])]
+        else:
+            losses = [measurement_loss_fn(prior, net, rgb_in, sigma, y_p, phi_p, y_f, phi_f)]
+        named = list(net.named_parameters())
+        on = [filters is None or any(f in name for f in filters) for name, _ in named]
+        trainable = [p for (_, p), keep in zip(named, on) if keep]
         with torch.enable_grad():
             for lr_i, n_i in stages:
-                opt = torch.optim.Adam(trainable, lr=lr_i)
+                if fresh:
+                    opt = torch.optim.Adam(trainable, lr=lr_i)
+                else:
+                    for group in opt.param_groups:
+                        group["lr"] = lr_i
                 for _ in range(n_i):
                     net.zero_grad(set_to_none=True)
-                    loss().backward()
+                    backward_mean(losses)
+                    if not fresh:
+                        for (_, p), keep in zip(named, on):
+                            if not keep or p.grad is None:
+                                p.grad = torch.zeros_like(p)
                     opt.step()
         net.zero_grad(set_to_none=True)
 

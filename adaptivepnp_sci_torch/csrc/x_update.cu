@@ -4,17 +4,25 @@
 // (pallas_call in _fused_x_update), public wrappers admm_x_update and
 // gap_x_update.
 //
-// Computes, for every pixel of the (4, H/2, W/2) output plane:
+// Computes, for every pixel of the (4, H/2, W/2) output plane of every item:
 //     p_t = theta_t + sign * b_t / rho          (t = 0 .. B-1)
 //     r   = (y - sum_t phi_t * p_t) / (c + phi_sum)
 //     x_t = p_t + lam * (phi_t * r)
 // ADMM: sign -1, rho = rho, c = alpha * rho, lam = 1.
 // GAP:  sign +1, rho = 1,   c = gamma,       lam = lam (any value).
 //
-// What bounds it on this card: memory bandwidth. Per call it must read three
+// Items: the multi-measurement drivers solve N measurements (tiles of one
+// scene, or a batch) in lockstep, with theta, b and the output (N, B, 4,
+// H/2, W/2) and y (N, 4, H/2, W/2). One launch covers every item: the grid's
+// y index is the item. phi and phi_sum either belong to each item (tiles) or
+// are shared by all (a batch under one mask); their item stride is then 0.
+// N = 1 is the single-measurement call, unchanged.
+//
+// What bounds it on this card: memory bandwidth. Per item it must read three
 // cubes (theta, b, phi) and two planes (y, phi_sum) and write one cube:
-// 35.7 MB at 512x512x8, about 11 us at 3.35 TB/s. It does ~6 flops per
-// 24 bytes, far below the card's flop-per-byte line.
+// 35.7 MB at 512x512x8, about 11 us at 3.35 TB/s (a shared phi is read once
+// for all items). It does ~6 flops per 24 bytes, far below the card's
+// flop-per-byte line.
 //
 // What the design does about it: one thread per (plane, h, w) output pixel,
 // or per 4 consecutive pixels with float4 loads when the plane size allows,
@@ -51,7 +59,8 @@ __device__ __forceinline__ void store(float* __restrict__ p, long long i, const 
   }
 }
 
-// n_vec: number of V-wide vectors in one (4, H/2, W/2) plane.
+// n_vec: number of V-wide vectors in one (4, H/2, W/2) plane. The item
+// strides are in floats: phi_stride is 0 or B planes, phi_s_stride 0 or one.
 template <int V>
 __global__ void x_update_kernel(const float* __restrict__ theta,
                                 const float* __restrict__ b,
@@ -59,9 +68,18 @@ __global__ void x_update_kernel(const float* __restrict__ theta,
                                 const float* __restrict__ phi,
                                 const float* __restrict__ phi_s,
                                 float* __restrict__ out, int nb, long long n_vec,
+                                long long phi_stride, long long phi_s_stride,
                                 float sign, float rho, float c, float lam) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= n_vec) return;
+  const long long item = blockIdx.y;
+  const long long plane = n_vec * V;
+  theta += item * nb * plane;
+  b += item * nb * plane;
+  out += item * nb * plane;
+  y += item * plane;
+  phi += item * phi_stride;
+  phi_s += item * phi_s_stride;
 
   float acc[V];
 #pragma unroll
@@ -96,23 +114,26 @@ __global__ void x_update_kernel(const float* __restrict__ theta,
 
 }  // namespace
 
-// plane: elements in one (4, H/2, W/2) plane; vec4: 1 when plane % 4 == 0
-// and every pointer is 16-byte aligned. Returns cudaGetLastError().
+// n_items: items (1 to 65535); plane: elements in one (4, H/2, W/2) plane;
+// phi_stride, phi_s_stride: item strides of phi and phi_s in floats (0 when
+// shared); vec4: 1 when plane % 4 == 0 and every pointer is 16-byte aligned.
+// Returns cudaGetLastError().
 extern "C" int apnp_x_update(const float* theta, const float* b, const float* y,
                              const float* phi, const float* phi_s, float* out,
-                             int nb, long long plane, float sign, float rho,
-                             float c, float lam, int vec4, void* stream) {
+                             int n_items, int nb, long long plane, long long phi_stride,
+                             long long phi_s_stride, float sign, float rho, float c,
+                             float lam, int vec4, void* stream) {
   constexpr int kThreads = 256;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec4) {
     const long long n_vec = plane / 4;
-    const unsigned grid = static_cast<unsigned>((n_vec + kThreads - 1) / kThreads);
-    x_update_kernel<4><<<grid, kThreads, 0, s>>>(theta, b, y, phi, phi_s, out, nb,
-                                                 n_vec, sign, rho, c, lam);
+    const dim3 grid(static_cast<unsigned>((n_vec + kThreads - 1) / kThreads), n_items);
+    x_update_kernel<4><<<grid, kThreads, 0, s>>>(theta, b, y, phi, phi_s, out, nb, n_vec,
+                                                 phi_stride, phi_s_stride, sign, rho, c, lam);
   } else {
-    const unsigned grid = static_cast<unsigned>((plane + kThreads - 1) / kThreads);
-    x_update_kernel<1><<<grid, kThreads, 0, s>>>(theta, b, y, phi, phi_s, out, nb,
-                                                 plane, sign, rho, c, lam);
+    const dim3 grid(static_cast<unsigned>((plane + kThreads - 1) / kThreads), n_items);
+    x_update_kernel<1><<<grid, kThreads, 0, s>>>(theta, b, y, phi, phi_s, out, nb, plane,
+                                                 phi_stride, phi_s_stride, sign, rho, c, lam);
   }
   return static_cast<int>(cudaGetLastError());
 }

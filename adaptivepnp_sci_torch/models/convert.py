@@ -19,14 +19,20 @@ DDnet: Flax scopes ``{temp1,temp11,temp2}/{inc_1,downc*,upc*,outc,fusion}/
 ``convblock`` indices (a conv at 0 and 2 of its ``Sequential``); the
 ``weight_tensor_*`` keep their names and shapes. All convolutions are
 bias-free.
+
+Adam: optax's ``ScaleByAdamState`` (``count``, and the moment trees ``mu``,
+``nu`` shaped like ``params``) maps onto ``torch.optim.Adam``'s state dict
+(``step``, ``exp_avg``, ``exp_avg_sq`` per parameter) through the same
+converters (:func:`adam_state_from_optax`, :func:`adam_state_to_optax`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+import torch.nn as nn
 from torch import Tensor
 
 
@@ -240,3 +246,40 @@ def load_variables_npz(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return tree
+
+
+def adam_state_from_optax(count: Any, mu: Mapping[str, Any], nu: Mapping[str, Any],
+                          model: nn.Module, from_flax: Callable[[Mapping[str, Any]], dict],
+                          lr: float) -> dict:
+    """optax Adam moments -> a ``torch.optim.Adam`` state dict for the
+    parameters of ``model`` at ``lr``. ``count`` is the step count; ``mu`` and
+    ``nu`` are trees shaped like the Flax ``params`` (numpy leaves), mapped by
+    ``from_flax`` (:func:`ffdnet_from_flax`, :func:`fastdvdnet_from_flax` or
+    :func:`ddnet_from_flax`) onto the parameter names."""
+    m = from_flax({"params": mu, "batch_stats": {}})
+    v = from_flax({"params": nu, "batch_stats": {}})
+    names = [name for name, _ in model.named_parameters()]
+    sd = torch.optim.Adam(model.parameters(), lr=lr).state_dict()
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    sd["state"] = {i: {"step": step.clone(), "exp_avg": m[name], "exp_avg_sq": v[name]}
+                   for i, name in enumerate(names)}
+    return sd
+
+
+def adam_state_to_optax(state_dict: Mapping[str, Any], model: nn.Module,
+                        to_flax: Callable[[Mapping[str, Tensor]], dict]
+                        ) -> tuple[int, dict, dict]:
+    """Inverse of :func:`adam_state_from_optax`: ``(count, mu, nu)`` with
+    ``mu``, ``nu`` Flax ``params`` trees of numpy arrays (zeros for a
+    parameter Adam has not stepped). ``to_flax`` is the model's inverse
+    converter (:func:`ffdnet_to_flax`, ...)."""
+    state = state_dict["state"]
+    count, m, v = 0, {}, {}
+    for i, (name, p) in enumerate(model.named_parameters()):
+        st = state.get(i)
+        if st is None:
+            m[name] = v[name] = torch.zeros_like(p)
+            continue
+        count = max(count, int(st["step"]))
+        m[name], v[name] = st["exp_avg"], st["exp_avg_sq"]
+    return count, to_flax(m)["params"], to_flax(v)["params"]

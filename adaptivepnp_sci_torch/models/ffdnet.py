@@ -50,3 +50,8 @@ class FFDNet(nn.Module):
 def ffdnet_color() -> FFDNet:
     """The color config of the flagship path (nc = 96, nb = 12)."""
     return FFDNet(in_nc=3, out_nc=3, nc=96, nb=12)
+
+
+def ffdnet_gray() -> FFDNet:
+    """The gray config (nc = 64, nb = 15), for the grayscale solver."""
+    return FFDNet(in_nc=1, out_nc=1, nc=64, nb=15)

@@ -128,7 +128,7 @@ def _signatures() -> dict[str, dict[str, list]]:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     pair = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     return {
-        "x_update": {"apnp_x_update": [p, p, p, p, p, p, i, ll, f, f, f, f, i, p]},
+        "x_update": {"apnp_x_update": [p, p, p, p, p, p, i, i, ll, ll, ll, f, f, f, f, i, p]},
         "tv_chambolle": {
             "apnp_tv_chambolle": [p, p, p, p, p, i, i, i, f, f, f, i, p],
             "apnp_tv_chambolle_cluster": [p, p, p, i, i, i, i, i, f, f, f, i, p],
@@ -170,15 +170,24 @@ def _raise_on(rc: int, what: str) -> None:
 
 def _x_update_cuda(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tensor,
                    sign: float, rho: float, c: float, lam: float) -> Tensor:
-    if theta.dim() != 4:
-        raise ValueError(f"x_update: expected theta (B, C, H, W), got {tuple(theta.shape)}")
-    cube, plane = tuple(theta.shape), tuple(theta.shape[1:])
+    if theta.dim() not in (4, 5):
+        raise ValueError(f"x_update: expected theta (B, C, H, W) or (N, B, C, H, W), "
+                         f"got {tuple(theta.shape)}")
+    cube, plane = tuple(theta.shape[-4:]), tuple(theta.shape[-3:])
+    items = tuple(theta.shape[:-4])
+    n_items = items[0] if items else 1
+    if not 1 <= n_items <= 65535:
+        raise ValueError(f"x_update: {n_items} items are outside the kernel's grid")
     dev = theta.device
-    for nm, t, shp in (("theta", theta, cube), ("b", b, cube), ("phi", phi, cube),
-                       ("y", y, plane), ("phi_s", phi_s, plane)):
+    # phi and phi_s belong to each item, or one of each is shared by all
+    phi_items = items if phi.dim() == theta.dim() else ()
+    phis_items = items if phi_s.dim() == y.dim() and phi_items else ()
+    for nm, t, shp in (("theta", theta, items + cube), ("b", b, items + cube),
+                       ("phi", phi, phi_items + cube), ("y", y, items + plane),
+                       ("phi_s", phi_s, phis_items + plane)):
         _check(f"x_update {nm}", t, shp, dev)
     out = torch.empty_like(theta)
-    n_plane = theta[0].numel()
+    n_plane = theta[(0,) * (len(items) + 1)].numel()
     vec4 = n_plane % 4 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (theta, b, y, phi, phi_s, out))
     lib = _lib("x_update")
@@ -186,7 +195,8 @@ def _x_update_cuda(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tens
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.apnp_x_update(
             theta.data_ptr(), b.data_ptr(), y.data_ptr(), phi.data_ptr(),
-            phi_s.data_ptr(), out.data_ptr(), cube[0], n_plane,
+            phi_s.data_ptr(), out.data_ptr(), n_items, cube[0], n_plane,
+            cube[0] * n_plane if phi_items else 0, n_plane if phis_items else 0,
             sign, rho, c, lam, int(vec4), stream)
     _raise_on(rc, "x_update launch")
     launches["x_update"] += 1
@@ -195,7 +205,11 @@ def _x_update_cuda(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tens
 
 def admm_x_update(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tensor,
                   rho: float, alpha: float) -> Tensor:
-    """Fused equivalent of :func:`physics.admm_x_update`."""
+    """Fused equivalent of :func:`physics.admm_x_update`: ``theta``, ``b``
+    ``(B, 4, h, w)`` with ``y``, ``phi_s`` ``(4, h, w)``, or with an item axis
+    in one launch: ``theta``, ``b`` ``(N, B, 4, h, w)``, ``y`` ``(N, 4, h, w)``,
+    and ``phi``, ``phi_s`` per item or one ``(B, 4, h, w)`` / ``(4, h, w)``
+    shared by all items."""
     if theta.device.type == "cpu":
         return physics.admm_x_update(theta, b, y, phi, phi_s, rho, alpha)
     return _x_update_cuda(theta, b, y, phi, phi_s, -1.0, rho, alpha * rho, 1.0)
@@ -203,7 +217,8 @@ def admm_x_update(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tenso
 
 def gap_x_update(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tensor,
                  lam: float = 1.0, gamma: float = 0.01) -> Tensor:
-    """Fused equivalent of :func:`physics.gap_x_update`, for any ``lam``."""
+    """Fused equivalent of :func:`physics.gap_x_update`, for any ``lam``, over
+    the shapes of :func:`admm_x_update`."""
     if theta.device.type == "cpu":
         return physics.gap_x_update(theta, b, y, phi, phi_s, lam, gamma)
     return _x_update_cuda(theta, b, y, phi, phi_s, 1.0, 1.0, gamma, lam)

@@ -17,11 +17,12 @@ from torch import Tensor
 
 from adaptivepnp_sci_torch.ops import bayer, physics
 from adaptivepnp_sci_torch.solvers.gap_tv import GapTVConfig, _gap_tv_packed, as_f32
-from adaptivepnp_sci_torch.solvers.priors import Prior, working_copy
+from adaptivepnp_sci_torch.solvers.priors import Prior
 from adaptivepnp_sci_torch.solvers.two_stage_admm import (
     ADMMConfig,
-    frame_metrics,
+    SolveState,
     check_supported,
+    frame_metrics,
     full_f32,
     run_admm,
 )
@@ -70,10 +71,10 @@ def reconstruct_single_dispatch(
         phi_p = bayer.pack(phi)
         x0 = physics.adjoint(y_p, phi_p)
         xw, _ = _gap_tv_packed(y_p, phi_p, x0, None, warm_cfg)
-        net = working_copy(prior, params, device) if admm_cfg.denoiser != "tv" else None
-        theta, xhat, trace, resids = run_admm(admm_cfg, prior, net, y, phi, xw, orig_t,
-                                              generator, demosaic_fn)
-        x_bayer = bayer.unpack(theta)
+        st = SolveState(admm_cfg, prior, params, device, generator=generator)
+        theta, xhat, trace, resids = run_admm(
+            admm_cfg, prior, st.net, y[None], phi, xw[None],
+            None if orig_t is None else orig_t[None], st.generator, demosaic_fn, None, st.opt)
+        x_bayer = bayer.unpack(theta[0])
         p, s = frame_metrics(orig_t, x_bayer)
-    variables = net.state_dict() if net is not None else params
-    return EndToEndResult(xhat, x_bayer, p, s, trace, variables, resids)
+    return EndToEndResult(xhat[0], x_bayer, p, s, trace[0], st.states()[0], resids)

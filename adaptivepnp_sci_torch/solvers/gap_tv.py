@@ -38,9 +38,11 @@ class GapTVResult(NamedTuple):
 
 def _gap_tv_packed(y: Tensor, phi: Tensor, x0: Tensor, orig: Tensor | None,
                    config: GapTVConfig) -> tuple[Tensor, Tensor]:
-    """Runs the warm start on packed tensors; returns ``(x, psnr_trace)``,
-    the trace of ``x`` against ``orig`` (zeros without ``orig``)."""
-    phi_s = physics.phi_sum(phi)
+    """Runs the warm start on packed tensors, ``(B, 4, h, w)`` or with a
+    leading item axis (``phi`` per item or shared; one kernel launch per step
+    for all items); returns ``(x, psnr_trace)``, the trace of ``x`` against
+    ``orig`` (zeros without ``orig``)."""
+    phi_s = physics.phi_sum(phi, physics.PACKED_FRAME_AXIS)
     x, theta, b = x0, x0, torch.zeros_like(x0)
     trace = []
     for _ in range(config.iters):

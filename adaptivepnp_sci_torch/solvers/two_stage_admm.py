@@ -9,12 +9,22 @@ the host from the static schedule, so the solver is a plain Python loop with
 ``if mask[k]: adapt``.
 
 Ported: the ``ffdnet``, ``fastdvd`` and ``tv`` denoiser branches; Malvar,
-bilinear and DDnet demosaicking (a fixed-weight ``demosaic_fn``, or in-scan
-adaptation of the demosaicker through a :class:`DmSpec`); the closed-form
-demosaic; ``denoiser_relax``; ``faithful_aliasing``; the ``select_best``
-guard, raw and held-out; and ``two_stage_admm`` for one measurement. Options
-of the JAX solver outside that subset raise ``NotImplementedError``
-(:func:`check_supported`); none is silently ignored.
+bilinear, Menon 2007 and DDnet demosaicking (a fixed-weight ``demosaic_fn``,
+or in-scan adaptation of the demosaicker through a :class:`DmSpec`); the
+closed-form demosaic; ``denoiser_relax``; ``faithful_aliasing``; the
+``select_best`` guard, raw and held-out; a carried Adam state
+(``AdaptConfig.fresh_opt_per_trigger=False``); ``two_stage_admm`` for one
+measurement and the three multi-measurement drivers:
+:func:`two_stage_admm_sequence` (the weights and Adam states carried from
+measurement to measurement), :func:`two_stage_admm_batched` (independent
+measurements) and :func:`two_stage_admm_tiled` (one oversized measurement cut
+into tiles that share one adaptation). Options of the JAX solver outside that
+subset raise ``NotImplementedError`` (:func:`check_supported`); none is
+silently ignored. The tiled driver has no ``mesh``: one card runs the tiles.
+
+Several measurements run in lockstep along a leading item axis
+(:func:`run_admm`): the x-update kernel takes all items in one launch, the
+TV kernel all their planes, and the priors and demosaickers run item by item.
 
 The held-out pixels of the ``select_best_holdout`` guard are drawn by
 :func:`holdout_mask` from a ``torch.Generator``: the JAX package's PRNG stream
@@ -34,16 +44,20 @@ from typing import Any, Callable, Mapping, NamedTuple
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch import Tensor
 
 from adaptivepnp_sci_torch.adapt.ddnet_online import dm_adam_steps
 from adaptivepnp_sci_torch.adapt.online import (
     AdaptConfig,
+    carried_adam,
     check_adapt_supported,
     make_adapt_fn,
     make_schedule,
 )
 from adaptivepnp_sci_torch.ops import bayer, cuda_kernels, demosaic, metrics, physics
+from adaptivepnp_sci_torch.ops.menon2007 import menon2007
+from adaptivepnp_sci_torch.ops.patches import crop_overlapping, crop_patches, stitch_patches
 from adaptivepnp_sci_torch.solvers.gap_tv import GapTVConfig, _gap_tv_packed, as_f32
 from adaptivepnp_sci_torch.solvers.priors import (
     Prior,
@@ -60,7 +74,7 @@ class ADMMConfig:
     sigma: tuple[float, ...]
     iters: tuple[int, ...]
     denoiser: str = "ffdnet"          # 'tv' | 'ffdnet' | 'fastdvd'
-    demosaic_method: str = "malvar"   # 'malvar' | 'bilinear' | 'ddnet'
+    demosaic_method: str = "malvar"   # 'malvar' | 'bilinear' | 'menon2007' | 'ddnet'
     closed_form_demosaic: bool = False
     tv_weight: float = 0.1
     tv_iters: int = 5
@@ -107,8 +121,12 @@ class ADMMResult(NamedTuple):
     dm_opt_state: Any = None  # and its Adam state dict
     #: (T + 1,) the select_best ranking statistic of candidate 0 (the warm
     #: start) and of each iterate; the first minimum is the returned one.
-    #: None without select_best.
+    #: None without select_best. The drivers stack it: (T_meas, T + 1) for a
+    #: sequence or a batch, (groups, T + 1) for tiles.
     resid_trace: Tensor | None = None
+    #: the carried denoiser Adam's state dict (``fresh_opt_per_trigger=False``),
+    #: to continue adaptation on the next measurement; None otherwise
+    opt_state: Any = None
 
 
 class DmSpec(NamedTuple):
@@ -147,13 +165,18 @@ class DmState:
         return self.spec.apply(self.net, mosaic_frames)
 
     def update(self, mosaic_frames: Tensor) -> None:
-        """``update_per_iter`` self-consistency Adam steps on ``mosaic_frames``."""
-        def loss() -> Tensor:
-            out = self.demosaic(mosaic_frames)
-            return torch.mean((bayer.mosaic(out) - mosaic_frames) ** 2) / 3.0
+        """``update_per_iter`` self-consistency Adam steps on ``mosaic_frames``
+        ``(N, B, H, W)``: one update shared by the ``N`` measurements, on the
+        mean of their losses."""
+        def loss(frames: Tensor) -> Callable[[], Tensor]:
+            def fn() -> Tensor:
+                out = self.demosaic(frames)
+                return torch.mean((bayer.mosaic(out) - frames) ** 2) / 3.0
+            return fn
 
-        self.opt, _ = dm_adam_steps(self.net, self.opt, loss, self.spec.lr,
-                                    self.spec.update_per_iter, self.spec.fresh_opt)
+        self.opt, _ = dm_adam_steps(self.net, self.opt, [loss(f) for f in mosaic_frames],
+                                    self.spec.lr, self.spec.update_per_iter,
+                                    self.spec.fresh_opt)
 
 
 def check_supported(config: ADMMConfig, prior: Prior | None = None,
@@ -162,7 +185,7 @@ def check_supported(config: ADMMConfig, prior: Prior | None = None,
     then ``ValueError`` for a combination that makes no sense."""
     if config.denoiser not in ("ffdnet", "fastdvd", "tv"):
         raise NotImplementedError(f"denoiser={config.denoiser!r} is not ported yet")
-    if config.demosaic_method not in ("malvar", "bilinear", "ddnet"):
+    if config.demosaic_method not in ("malvar", "bilinear", "menon2007", "ddnet"):
         raise NotImplementedError(
             f"demosaic_method={config.demosaic_method!r} is not ported yet")
     if config.adapt is not None and prior is not None:
@@ -221,54 +244,90 @@ def full_f32():
         torch.backends.cuda.matmul.allow_tf32 = mm
 
 
+def _per_item(fn: Callable[[Tensor], Tensor], x: Tensor) -> Tensor:
+    """``fn`` on each item of ``x``'s leading axis, stacked: priors and
+    demosaickers see one measurement's frames at a time, so no window of
+    frames ever spans two items."""
+    return torch.stack([fn(x[i]) for i in range(x.shape[0])])
+
+
 def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
              y_full: Tensor, phi_full: Tensor, x0: Tensor, orig: Tensor | None,
              generator: torch.Generator | None = None, demosaic_fn: Callable | None = None,
-             dm: DmState | None = None) -> tuple[Tensor, Tensor, Tensor, Tensor | None]:
-    """The whole sigma schedule from the packed warm start ``x0``; adapts
-    ``net`` in place when the schedule fires, drawing the adaptation noise
-    from ``generator`` (None: one seeded with 0 on the run's device).
+             dm: DmState | None = None, opt: torch.optim.Adam | None = None,
+             pooled: bool = True) -> tuple[Tensor, Tensor, Tensor, Tensor | None]:
+    """The whole sigma schedule for ``N`` measurements in lockstep, from the
+    packed warm starts ``x0 (N, B, 4, h, w)``, with ``y_full (N, H, W)``,
+    ``phi_full`` one ``(B, H, W)`` shared by all items or ``(N, B, H, W)``,
+    and ``orig (N, B, H, W)`` or None. Adapts ``net`` in place when the
+    schedule fires, drawing the adaptation noise from ``generator`` (None: one
+    seeded with 0 on the run's device) and stepping ``opt`` when the schedule
+    carries one Adam (:func:`~adaptivepnp_sci_torch.adapt.online.carried_adam`).
     ``demosaic_fn`` (e.g. :func:`~adaptivepnp_sci_torch.solvers.priors.ddnet_demosaic`)
     replaces ``config.demosaic_method``'s demosaicker; ``dm`` adapts and runs
-    the demosaicker in the loop. Returns ``(theta, xhat, trace, resid_trace)``:
-    the packed final (or, with ``select_best``, chosen) theta, its RGB cube
-    (zeros for 'tv'), the per-iteration PSNR of theta against ``orig`` (zeros
-    without it) and the ``select_best`` ranking statistics (None without)."""
+    the demosaicker in the loop.
+
+    ``pooled`` (the tiles of one scene): the items share one adaptation (the
+    mean of their losses) and one ``select_best`` pick (the mean of their
+    residuals). Otherwise (a batch) each item picks its own iterate, and
+    adaptation is refused for more than one item.
+
+    Returns ``(theta, xhat, trace, resid_trace)``: the packed final (or, with
+    ``select_best``, chosen) theta ``(N, B, 4, h, w)``, its RGB cube (zeros
+    for 'tv'), the per-iteration PSNR of each item's theta against ``orig``
+    ``(N, T)`` (zeros without it) and the ``select_best`` ranking statistics,
+    ``(T + 1,)`` pooled or ``(N, T + 1)`` (None without the guard)."""
     sigmas_np, mask = make_schedule(config.sigma, config.iters, config.adapt)
     total = int(sigmas_np.shape[0])
     relax_np = relax_schedule(config)
     rho, alpha, tau = config.rho, config.alpha, config.tau
     dev = x0.device
+    n_items = x0.shape[0]
+    adapting = (config.adapt is not None and config.denoiser != "tv") or dm is not None
+    if not pooled and n_items > 1 and adapting:
+        raise ValueError("independent items cannot share one adaptation: run them one by one")
+    fa = physics.PACKED_FRAME_AXIS
 
     hold_p = None
     if config.select_best and config.select_best_holdout > 0:
         # held-out CV guard: the pixel subset leaves the whole data term (the
         # x-update and the adaptation loss), and iterates are ranked by their
-        # prediction error of the true measurement there
+        # prediction error of the true measurement there; one mask per item
+        # shape, the same for every item
         hold = holdout_mask(config.select_best_seed, config.select_best_holdout,
-                            tuple(y_full.shape), dev)
+                            tuple(y_full.shape[-2:]), dev)
         y_true_p, phi_true_p = bayer.pack(y_full), bayer.pack(phi_full)
         hold_p = bayer.pack(hold)
         hold_n = torch.clamp(hold_p.sum(), min=1.0)
         y_full = y_full * (1.0 - hold)
         phi_full = phi_full * (1.0 - hold)[None]
-    y_p = bayer.pack(y_full)      # (4, H2, W2)
-    phi_p = bayer.pack(phi_full)  # (B, 4, H2, W2)
-    phi_s = physics.phi_sum(phi_p)
-    n_frames, h, w = phi_full.shape
+    y_p = bayer.pack(y_full)      # (N, 4, h, w)
+    phi_p = bayer.pack(phi_full)  # (B, 4, h, w) or (N, B, 4, h, w)
+    phi_s = physics.phi_sum(phi_p, fa)
+    per_phi = phi_full.dim() == 4
+    n_frames, h, w = phi_full.shape[-3:]
     trace: list[Tensor] = []
     resids: list[Tensor] = []
     best: list[Tensor | None] = []
 
+    def item_phi(phi: Tensor, i: int) -> Tensor:
+        return phi[i] if per_phi else phi
+
     def trace_psnr(theta: Tensor) -> None:
         if orig is not None:
-            trace.append(metrics.psnr(orig, bayer.unpack(theta)))
+            trace.append(torch.stack([metrics.psnr(orig[i], bayer.unpack(theta[i]))
+                                      for i in range(n_items)]))
 
     def resid(theta: Tensor) -> Tensor:
         if hold_p is None:
-            return torch.mean((physics.forward(theta, phi_p) - y_p) ** 2)
-        err = (physics.forward(theta, phi_true_p) - y_true_p) ** 2
-        return torch.sum(err * hold_p) / hold_n
+            rs = [torch.mean((physics.forward(theta[i], item_phi(phi_p, i)) - y_p[i]) ** 2)
+                  for i in range(n_items)]
+        else:
+            rs = [torch.sum((physics.forward(theta[i], item_phi(phi_true_p, i))
+                             - y_true_p[i]) ** 2 * hold_p) / hold_n for i in range(n_items)]
+        if not pooled:
+            return torch.stack(rs)
+        return rs[0] if n_items == 1 else torch.stack(rs).mean()
 
     def cand0_resid(x0: Tensor) -> Tensor:
         # under the held-out guard the passed warm start was fit to the full
@@ -276,7 +335,7 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         # recomputed from the masked data; a pin still returns x0 itself
         if hold_p is None:
             return resid(x0)
-        x_ref, _ = _gap_tv_packed(y_p, phi_p, physics.adjoint(y_p, phi_p), None,
+        x_ref, _ = _gap_tv_packed(y_p, phi_p, physics.adjoint(y_p, phi_p, fa), None,
                                   GapTVConfig(iters=config.select_best_warm_iters))
         return resid(x_ref)
 
@@ -288,15 +347,23 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
             best[:] = [r, theta, xhat]
             return
         take = r < best[0]
-        best[:] = [torch.where(take, r, best[0]), torch.where(take, theta, best[1]),
-                   None if xhat is None else torch.where(take, xhat, best[2])]
+
+        def pick(new: Tensor, old: Tensor) -> Tensor:
+            # one pick for all items, or one per item
+            t = take if pooled else take.view(-1, *([1] * (new.dim() - 1)))
+            return torch.where(t, new, old)
+
+        best[:] = [pick(r, best[0]), pick(theta, best[1]),
+                   None if xhat is None else pick(xhat, best[2])]
 
     def finish() -> tuple[Tensor, Tensor | None]:
         if orig is None:
-            tr = torch.zeros(total, dtype=torch.float32, device=dev)
+            tr = torch.zeros((n_items, total), dtype=torch.float32, device=dev)
         else:
-            tr = torch.stack(trace)
-        return tr, torch.stack(resids) if resids else None
+            tr = torch.stack(trace, dim=1)
+        if not resids:
+            return tr, None
+        return tr, torch.stack(resids, dim=-1)
 
     x, theta, b = x0, x0, torch.zeros_like(x0)
     if config.denoiser == "tv":
@@ -314,7 +381,7 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
             trace_psnr(theta)
         if config.select_best:
             theta = best[1]
-        zero_rgb = torch.zeros((n_frames, h, w, 3), dtype=torch.float32, device=dev)
+        zero_rgb = torch.zeros((n_items, n_frames, h, w, 3), dtype=torch.float32, device=dev)
         return theta, zero_rgb, *finish()
 
     if dm is not None:
@@ -323,6 +390,8 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         dm_fn = demosaic_fn
     elif config.demosaic_method == "bilinear":
         dm_fn = demosaic.bilinear
+    elif config.demosaic_method == "menon2007":
+        dm_fn = menon2007
     else:
         dm_fn = demosaic.malvar2004
     cfa = bayer.mask_like(x0, (h, w))
@@ -331,19 +400,19 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         generator = torch.Generator(device=dev).manual_seed(0)
     sigmas = torch.as_tensor(sigmas_np, device=dev)  # one copy; sigmas[k] is a view
     relax = torch.as_tensor(relax_np, device=dev) if relax_np is not None else None
-    w_dual = torch.zeros((n_frames, h, w, 3), dtype=torch.float32, device=dev)
+    w_dual = torch.zeros((n_items, n_frames, h, w, 3), dtype=torch.float32, device=dev)
     xhat = w_dual
     if config.select_best:
         # candidate 0: the warm start and its RGB view through the initial
         # demosaicker
-        consider(cand0_resid(x0), x0, dm_fn(bayer.unpack(x0)))
+        consider(cand0_resid(x0), x0, _per_item(dm_fn, bayer.unpack(x0)))
     for k in range(total):
         sigma = sigmas[k]
         x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha)
-        xb_full = bayer.unpack(x + b / rho)
+        xb_full = bayer.unpack(x + b / rho)  # (N, B, H, W)
         if dm is not None:
             dm.update(xb_full)
-            x_rgb = dm.demosaic(xb_full)
+            x_rgb = _per_item(dm.demosaic, xb_full)
         elif config.closed_form_demosaic and k > 0:
             num = (rho * bayer.embed_rgb(bayer.unpack(x)) + bayer.embed_rgb(bayer.unpack(b))
                    + tau * xhat + w_dual)
@@ -351,11 +420,11 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
             if config.denoiser == "ffdnet":
                 x_rgb = torch.clamp(x_rgb, 0.0, 1.0)
         else:
-            x_rgb = dm_fn(xb_full)
+            x_rgb = _per_item(dm_fn, xb_full)
         x_rgb_w = x_rgb - w_dual / tau
         if adapt is not None and mask[k]:
-            adapt(net, x_rgb_w, sigma, y_p, phi_p, y_full, phi_full, generator)
-        xhat = prior.apply(net, x_rgb_w, sigma)
+            adapt(net, x_rgb_w, sigma, y_p, phi_p, y_full, phi_full, generator, opt)
+        xhat = _per_item(lambda rgb: prior.apply(net, rgb, sigma), x_rgb_w)
         if relax is not None:
             xhat = x_rgb_w + relax[k] * (xhat - x_rgb_w)
         theta_pre = bayer.rggb_subsample(xhat)
@@ -379,6 +448,45 @@ def frame_metrics(orig: Tensor | None, x_bayer: Tensor) -> tuple[Tensor, Tensor]
     return metrics.psnr_per_frame(orig, x_bayer), metrics.ssim_per_frame(orig, x_bayer)
 
 
+def check_inputs(y: Tensor, phi: Tensor) -> None:
+    if y.dim() != 2 or phi.dim() != 3 or tuple(phi.shape[1:]) != tuple(y.shape):
+        raise ValueError(
+            f"expected y (H, W) and phi (B, H, W) with matching spatial dims; "
+            f"got y {tuple(y.shape)}, phi {tuple(phi.shape)}"
+        )
+    if y.shape[0] % 2 or y.shape[1] % 2:
+        raise ValueError(f"Bayer dims must be even, got {tuple(y.shape)}")
+
+
+class SolveState:
+    """The private state of one solve, or of a sequence of solves that carry
+    it: the denoiser's working copy and its carried Adam, the in-scan
+    demosaicker, and the adaptation noise generator."""
+
+    def __init__(self, config: ADMMConfig, prior: Prior | None,
+                 params: Mapping[str, Tensor] | None, device: torch.device | str,
+                 opt_state: Mapping | None = None, dm_spec: DmSpec | None = None,
+                 dm_variables: Mapping[str, Tensor] | None = None,
+                 dm_opt_state: Mapping | None = None,
+                 generator: torch.Generator | None = None):
+        self.params = params
+        self.net = working_copy(prior, params, device) if config.denoiser != "tv" else None
+        adapting = config.adapt is not None and self.net is not None
+        self.opt = carried_adam(self.net, config.adapt, opt_state) if adapting else None
+        self.dm = DmState(dm_spec, dm_variables, dm_opt_state, device) if dm_spec else None
+        if generator is None and adapting and prior.adapt_noise_std > 0:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.generator = generator
+
+    def states(self) -> tuple[Any, Any, Any, Any]:
+        """``(variables, opt_state, dm_variables, dm_opt_state)`` as they stand."""
+        variables = self.net.state_dict() if self.net is not None else self.params
+        opt_state = self.opt.state_dict() if self.opt is not None else None
+        if self.dm is None:
+            return variables, opt_state, None, None
+        return variables, opt_state, self.dm.net.state_dict(), self.dm.opt.state_dict()
+
+
 def two_stage_admm(
     y_bayer: np.ndarray | Tensor,
     phi_bayer: np.ndarray | Tensor,
@@ -393,6 +501,7 @@ def two_stage_admm(
     dm_spec: DmSpec | None = None,
     dm_variables: Mapping[str, Tensor] | None = None,
     dm_opt_state: Mapping | None = None,
+    opt_state: Mapping | None = None,
 ) -> ADMMResult:
     """Reconstruct one measurement.
 
@@ -415,18 +524,14 @@ def two_stage_admm(
         ``dm_variables`` (None: the template's weights) and an Adam state
         dict; never modified. The refined ones come back in
         ``ADMMResult.dm_variables`` and ``.dm_opt_state``.
+      opt_state:  the denoiser Adam's state dict to continue from, with
+        ``AdaptConfig.fresh_opt_per_trigger=False`` (None: a new Adam); the
+        state after this solve comes back in ``ADMMResult.opt_state``.
     """
     check_supported(config, prior, demosaic_fn, dm_spec)
     y = as_f32(y_bayer, device)
     phi = as_f32(phi_bayer, device)
-    if y.dim() != 2 or phi.dim() != 3 or tuple(phi.shape[1:]) != tuple(y.shape):
-        raise ValueError(
-            f"expected y (H, W) and phi (B, H, W) with matching spatial dims; "
-            f"got y {tuple(y.shape)}, phi {tuple(phi.shape)}"
-        )
-    if y.shape[0] % 2 or y.shape[1] % 2:
-        raise ValueError(f"Bayer dims must be even, got {tuple(y.shape)}")
-
+    check_inputs(y, phi)
     if x0_bayer is None:
         x0 = physics.adjoint(bayer.pack(y), bayer.pack(phi))
     else:
@@ -434,14 +539,273 @@ def two_stage_admm(
     orig = as_f32(orig_bayer, device) if orig_bayer is not None else None
 
     with full_f32(), torch.no_grad():
-        net = working_copy(prior, params, device) if config.denoiser != "tv" else None
-        dm = DmState(dm_spec, dm_variables, dm_opt_state, device) if dm_spec else None
-        theta, xhat, trace, resids = run_admm(config, prior, net, y, phi, x0, orig,
-                                              generator, demosaic_fn, dm)
-        x_bayer = bayer.unpack(theta)
+        st = SolveState(config, prior, params, device, opt_state, dm_spec, dm_variables,
+                    dm_opt_state, generator)
+        theta, xhat, trace, resids = run_admm(
+            config, prior, st.net, y[None], phi, x0[None],
+            None if orig is None else orig[None], st.generator, demosaic_fn, st.dm, st.opt)
+        x_bayer = bayer.unpack(theta[0])
         p, s = frame_metrics(orig, x_bayer)
-    variables = net.state_dict() if net is not None else params
-    if dm is None:
-        return ADMMResult(xhat, x_bayer, p, s, trace, variables, resid_trace=resids)
-    return ADMMResult(xhat, x_bayer, p, s, trace, variables, dm.net.state_dict(),
-                      dm.opt.state_dict(), resids)
+    variables, opt_out, dm_vars, dm_opt = st.states()
+    return ADMMResult(xhat[0], x_bayer, p, s, trace[0], variables, dm_vars, dm_opt,
+                      resids, opt_out)
+
+
+def stack_states(states: list[Any]) -> Any:
+    """State dicts (nested dicts of tensors, Adam's included) stacked over a
+    new leading axis, tensor by tensor; other leaves are taken from the first."""
+    first = states[0]
+    if isinstance(first, Tensor):
+        return torch.stack(states)
+    if isinstance(first, Mapping):
+        return {k: stack_states([s[k] for s in states]) for k in first}
+    if isinstance(first, list):
+        return [stack_states([s[i] for s in states]) for i in range(len(first))]
+    return first
+
+
+def _stack_results(results: list[ADMMResult]) -> tuple[Tensor, ...]:
+    """``x_rgb``, ``x_bayer``, PSNR, SSIM, trace and (or None) the ranking
+    statistics of each result, stacked over a new leading axis."""
+    fields = [torch.stack([getattr(r, f) for r in results])
+              for f in ("x_rgb", "x_bayer", "psnr_per_frame", "ssim_per_frame", "psnr_trace")]
+    resid = (None if results[0].resid_trace is None
+             else torch.stack([r.resid_trace for r in results]))
+    return (*fields, resid)
+
+
+def two_stage_admm_sequence(
+    y_seq: np.ndarray | Tensor,
+    phi_bayer: np.ndarray | Tensor,
+    config: ADMMConfig,
+    prior: Prior | None = None,
+    params: Mapping[str, Tensor] | None = None,
+    x0_seq: np.ndarray | Tensor | None = None,
+    orig_seq: np.ndarray | Tensor | None = None,
+    dm_spec: DmSpec | None = None,
+    dm_variables: Mapping[str, Tensor] | None = None,
+    device: torch.device | str = "cuda",
+    generator: torch.Generator | None = None,
+) -> ADMMResult:
+    """Reconstruct ``T`` measurements ``y_seq (T, H, W)`` of one scene under
+    one mask ``phi (B, H, W)`` one after another, the reference's
+    ``reuse_model`` loop: the adapted denoiser weights and its Adam state (a
+    new Adam to start), the in-scan demosaicker and its Adam, and the
+    adaptation noise ``generator`` (None: one seeded with 0) carry from
+    measurement t to t + 1. Every result field gains a leading ``T`` axis;
+    the states returned are those after the last measurement.
+
+    The JAX package draws each measurement's adaptation noise from its own
+    split of one PRNG key; the port's one generator gives other numbers."""
+    check_supported(config, prior, None, dm_spec)
+    y = as_f32(y_seq, device)
+    phi = as_f32(phi_bayer, device)
+    x0 = None if x0_seq is None else as_f32(x0_seq, device)
+    orig = None if orig_seq is None else as_f32(orig_seq, device)
+    with full_f32(), torch.no_grad():
+        st = SolveState(config, prior, params, device, None, dm_spec, dm_variables, None, generator)
+        runs = []
+        for t in range(y.shape[0]):
+            check_inputs(y[t], phi)
+            x0_t = (physics.adjoint(bayer.pack(y[t]), bayer.pack(phi)) if x0 is None
+                    else bayer.pack(x0[t]))
+            theta, xhat, trace, resids = run_admm(
+                config, prior, st.net, y[t][None], phi, x0_t[None],
+                None if orig is None else orig[t][None], st.generator, None, st.dm, st.opt)
+            x_bayer = bayer.unpack(theta[0])
+            p, s = frame_metrics(None if orig is None else orig[t], x_bayer)
+            runs.append(ADMMResult(xhat[0], x_bayer, p, s, trace[0], None, resid_trace=resids))
+        out = _stack_results(runs)
+    variables, opt_state, dm_vars, dm_opt = st.states()
+    return ADMMResult(*out[:5], variables, dm_vars, dm_opt, out[5], opt_state)
+
+
+def two_stage_admm_batched(
+    y_batch: np.ndarray | Tensor,
+    phi_bayer: np.ndarray | Tensor,
+    config: ADMMConfig,
+    prior: Prior | None = None,
+    params: Mapping[str, Tensor] | None = None,
+    x0_batch: np.ndarray | Tensor | None = None,
+    orig_batch: np.ndarray | Tensor | None = None,
+    demosaic_fn: Callable[[Tensor], Tensor] | None = None,
+    opt_state: Mapping | None = None,
+    dm_spec: DmSpec | None = None,
+    dm_variables: Mapping[str, Tensor] | None = None,
+    dm_opt_state: Mapping | None = None,
+    device: torch.device | str = "cuda",
+    generator: torch.Generator | None = None,
+) -> ADMMResult:
+    """Reconstruct ``T`` independent measurements ``y_batch (T, H, W)`` of one
+    scene under one mask ``phi (B, H, W)``: every result field gains a leading
+    ``T`` axis. Each measurement adapts on its own from the same starting
+    weights and (dm_)Adam states, which come back stacked over ``T``
+    (:func:`stack_states`); no weights pass from one measurement to the next
+    (:func:`two_stage_admm_sequence` does that).
+
+    Without adaptation and without ``dm_spec`` the ``T`` measurements run in
+    lockstep, one kernel launch per step for all of them, each taking its own
+    ``select_best`` pick; with either, one :func:`two_stage_admm` after
+    another, the adaptation noise drawn from one ``generator`` in turn (the
+    JAX package splits one PRNG key per measurement instead)."""
+    check_supported(config, prior, demosaic_fn, dm_spec)
+    y = as_f32(y_batch, device)
+    phi = as_f32(phi_bayer, device)
+    x0 = None if x0_batch is None else as_f32(x0_batch, device)
+    orig = None if orig_batch is None else as_f32(orig_batch, device)
+    n = y.shape[0]
+    for t in range(n):
+        check_inputs(y[t], phi)
+    adapting = config.adapt is not None and prior is not None
+    if adapting or dm_spec is not None:
+        if adapting and generator is None and prior.adapt_noise_std > 0:
+            generator = torch.Generator(device=device).manual_seed(0)
+        runs = [two_stage_admm(y[t], phi, config, prior, params,
+                               None if x0 is None else x0[t],
+                               None if orig is None else orig[t], device, generator,
+                               demosaic_fn, dm_spec, dm_variables, dm_opt_state, opt_state)
+                for t in range(n)]
+        states = [stack_states([getattr(r, f) for r in runs]) if getattr(runs[0], f) is not None
+                  else None for f in ("variables", "dm_variables", "dm_opt_state", "opt_state")]
+        out = _stack_results(runs)
+        return ADMMResult(*out[:5], states[0], states[1], states[2], out[5], states[3])
+    with full_f32(), torch.no_grad():
+        st = SolveState(config, prior, params, device)
+        x0_p = (physics.adjoint(bayer.pack(y), bayer.pack(phi), physics.PACKED_FRAME_AXIS)
+                if x0 is None else bayer.pack(x0))
+        theta, xhat, trace, resids = run_admm(config, prior, st.net, y, phi, x0_p, orig,
+                                              None, demosaic_fn, pooled=False)
+        x_bayer = bayer.unpack(theta)
+        metrics_t = [frame_metrics(None if orig is None else orig[t], x_bayer[t])
+                     for t in range(n)]
+        p = torch.stack([m[0] for m in metrics_t])
+        s = torch.stack([m[1] for m in metrics_t])
+    variables = None if params is None else stack_states([dict(params)] * n)
+    return ADMMResult(xhat, x_bayer, p, s, trace, variables, resid_trace=resids)
+
+
+def _check_ddnet_window(win: int, config: ADMMConfig, dm_spec: DmSpec | None) -> None:
+    """DDnet's demosaicker pads a frame up to a multiple of 4, but its
+    half-resolution branch downsamples twice more, so a padded size of
+    4 (mod 8) fails in both packages; refuse such a window up front."""
+    if config.demosaic_method != "ddnet" and dm_spec is None:
+        return
+    padded = -(-win // 4) * 4
+    if padded % 8:
+        raise ValueError(
+            f"DDnet needs tile windows whose size, padded to a multiple of 4, is a "
+            f"multiple of 8: the window is {win} (tile + 2 * overlap), padded {padded}")
+
+
+def two_stage_admm_tiled(
+    y_bayer: np.ndarray | Tensor,
+    phi_bayer: np.ndarray | Tensor,
+    config: ADMMConfig,
+    tile: int = 512,
+    prior: Prior | None = None,
+    params: Mapping[str, Tensor] | None = None,
+    orig_bayer: np.ndarray | Tensor | None = None,
+    demosaic_fn: Callable[[Tensor], Tensor] | None = None,
+    x0_bayer: np.ndarray | Tensor | None = None,
+    opt_state: Mapping | None = None,
+    dm_spec: DmSpec | None = None,
+    dm_variables: Mapping[str, Tensor] | None = None,
+    dm_opt_state: Mapping | None = None,
+    generator: torch.Generator | None = None,
+    overlap: int = 0,
+    tile_chunk: int | None = None,
+    device: torch.device | str = "cuda",
+) -> ADMMResult:
+    """Large-scene mode: reconstruct one oversized measurement ``y (H, W)``
+    as ``tile x tile`` patches solved in lockstep, then stitch.
+
+    The SCI x-update is pixel-separable, so tiling is exact for the data
+    term; only the denoiser and demosaicker see tile borders. ``tile`` must
+    be even and divide H and W. ``overlap`` (even, in pixels): each tile is
+    solved on a ``tile + 2 * overlap`` window of real context (the scene is
+    reflect-padded at its edges) and only its central core is stitched.
+
+    All tiles share one adapted weight copy: each adaptation step takes the
+    mean of the tiles' losses, the gradient the JAX package ``pmean``-s over
+    its tile axis; ``dm_spec`` adapts one demosaicker the same way. With
+    ``config.select_best`` every tile takes the same iterate, the one whose
+    residual averaged over the tiles is least. ``tile_chunk`` solves the tiles
+    in sequential groups of that size (it must divide the tile count), the
+    weights, Adam states and noise generator carried from group to group;
+    pooling and the pick then span one group. The returned weights and Adam
+    states are the single shared copy after the last group; ``opt_state`` /
+    ``dm_opt_state`` continue adaptation from an earlier measurement.
+
+    ``x0_bayer``: the full-size warm start ``(B, H, W)`` (GAP-TV), cropped
+    into tiles; without it each tile starts from the adjoint. The PSNR trace
+    is the mean over tiles (zeros without ``orig_bayer``); ``resid_trace`` is
+    ``(groups, T + 1)``. There is no multi-card ``mesh``: one card runs every
+    tile."""
+    check_supported(config, prior, demosaic_fn, dm_spec)
+    y = as_f32(y_bayer, device)
+    phi = as_f32(phi_bayer, device)
+    check_inputs(y, phi)
+    h, w = y.shape
+    if tile % 2 or h % tile or w % tile:
+        raise ValueError(f"tile {tile} must be even and divide the scene {h} x {w}")
+    if overlap < 0 or overlap % 2:
+        raise ValueError(f"overlap {overlap} must be even and >= 0 (the Bayer phase)")
+    win = tile + 2 * overlap
+    _check_ddnet_window(win, config, dm_spec)
+
+    def crop(arr: Tensor) -> Tensor:
+        # (C, H, W) -> (N, C, win, win)
+        if overlap:
+            arr = F.pad(arr, (overlap,) * 4, mode="reflect")
+            t, grid = crop_overlapping(torch.movedim(arr, 0, -1), tile, overlap)
+        else:
+            t, grid = crop_patches(torch.movedim(arr, 0, -1), tile)
+        return torch.movedim(t, -1, 1).contiguous(), grid
+
+    y_t, grid = crop(y[None])
+    y_t = y_t[:, 0]
+    phi_t, _ = crop(phi)
+    orig = as_f32(orig_bayer, device) if orig_bayer is not None else None
+    orig_t = crop(orig)[0] if orig is not None else None
+    x0_t = crop(as_f32(x0_bayer, device))[0] if x0_bayer is not None else None
+    n_tiles = y_t.shape[0]
+    chunk = n_tiles if tile_chunk is None else int(tile_chunk)
+    if not 1 <= chunk <= n_tiles or n_tiles % chunk:
+        raise ValueError(f"tile_chunk {tile_chunk} must divide the tile count {n_tiles}")
+    pooled = ((config.adapt is not None and prior is not None) or dm_spec is not None
+              or config.select_best)
+
+    with full_f32(), torch.no_grad():
+        st = SolveState(config, prior, params, device, opt_state, dm_spec, dm_variables,
+                    dm_opt_state, generator)
+        thetas, xhats, traces, resids = [], [], [], []
+        for c0 in range(0, n_tiles, chunk):
+            sl = slice(c0, c0 + chunk)
+            y_c, phi_c = y_t[sl], phi_t[sl]
+            x0_c = (physics.adjoint(bayer.pack(y_c), bayer.pack(phi_c), physics.PACKED_FRAME_AXIS)
+                    if x0_t is None else bayer.pack(x0_t[sl]))
+            theta, xhat, trace, r = run_admm(
+                config, prior, st.net, y_c, phi_c, x0_c,
+                None if orig_t is None else orig_t[sl], st.generator, demosaic_fn, st.dm,
+                st.opt, pooled)
+            thetas.append(theta)
+            xhats.append(xhat)
+            traces.append(trace)
+            resids.append(r)
+        theta, xhat, trace = (torch.cat(v) for v in (thetas, xhats, traces))
+        x_bayer_t = bayer.unpack(theta)  # (N, B, win, win)
+        if overlap:
+            # keep only the cores: the borders the denoiser saw lie in the halo
+            core = slice(overlap, overlap + tile)
+            x_bayer_t = x_bayer_t[:, :, core, core]
+            xhat = xhat[:, :, core, core, :]
+        x_bayer = torch.movedim(stitch_patches(torch.movedim(x_bayer_t, 1, -1), grid), -1, 0)
+        nb = phi.shape[0]
+        xr = torch.movedim(xhat, 1, -2).reshape(n_tiles, tile, tile, nb * 3)
+        x_rgb = torch.movedim(stitch_patches(xr, grid).reshape(h, w, nb, 3), 2, 0)
+        p, s = frame_metrics(orig, x_bayer)
+        trace = trace.mean(dim=0) if orig is not None else torch.zeros_like(trace[0])
+    variables, opt_out, dm_vars, dm_opt = st.states()
+    resid_trace = torch.stack(resids) if resids[0] is not None else None
+    return ADMMResult(x_rgb, x_bayer, p, s, trace, variables, dm_vars, dm_opt,
+                      resid_trace, opt_out)

@@ -18,6 +18,12 @@ from a seed), the FastDVDnet prior path (trained weights from
 kernel) and the deep-demosaicking row of the scene table (DDnet from
 ``weights/ddnet.npz`` and FastDVDnet, both in bf16, with the held-out
 ``select_best`` guard; also once with the demosaicker adapted in the loop).
+Then the multi-measurement drivers: each held against its CPU plain path at
+small size (``drivers_parity``: tiled, sequence, batched, and ``gap_deep``,
+Menon 2007 and the gray solver), a 2048x2048x8 scene cut into 512 tiles
+under the bf16 FastDVDnet row with its adaptation shared over the tiles
+(``tiled``), and the FFDNet flagship over two measurements with a carried
+Adam state (``sequence``).
 Each phase prints one JSON line; any failure exits nonzero. The last line is
 ``{"ok": true, "device": {...}}``. It exits 1 without printing a result when
 no CUDA device is present, and fails when the package is not beside it.
@@ -37,7 +43,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "k1", "k2", "k3", "slice_parity", "flagship",
-          "fastdvd_parity", "fastdvd", "ddnet_parity", "ddnet", "kernels")
+          "fastdvd_parity", "fastdvd", "ddnet_parity", "ddnet", "drivers_parity", "tiled",
+          "sequence", "kernels")
 
 #: NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth, non-tensor fp32 rate and
 #: dense bf16 rate of the tensor cores
@@ -99,6 +106,23 @@ DDNET_PARITY_ITERS = (6, 4)
 DDNET_PARITY_LAUNCHES = {"x_update": 90, "tv_chambolle": 80, "convpair": 0}
 #: the pipeline's defaults for the in-scan demosaicker adaptation
 DM_UPDATE = dict(lr=1e-6, update_per_iter=1)
+
+#: the large-scene path: a 2048x2048x8 scene, its 40-iteration GAP-TV warm
+#: start at full size (32 packed planes of 1024^2), then 16 tiles of 512 in 8
+#: sequential groups of 2 under the bf16 FastDVDnet path's schedule, the
+#: adaptation (k = 12 and 24) shared over each group's tiles and carried from
+#: group to group. Launches: 40 + 8 x 36 x-updates (one launch per iteration
+#: covers a group), 40 TV proxes, and 8 conv pairs per denoiser call of each
+#: tile, 16 x 36 x 8
+TILED = dict(size=2048, tile=512, tile_chunk=2)
+TILED_LAUNCHES = {2: {"x_update": 40 + 8 * 36, "tv_chambolle": 40, "convpair": 16 * 36 * 8},
+                  4: {"x_update": 40 + 4 * 36, "tv_chambolle": 40, "convpair": 16 * 36 * 8}}
+#: the sequence path: the FFDNet flagship over T = 2 measurements of one
+#: scene, the weights and one Adam carried; both GAP-TV warm starts counted
+SEQUENCE_LAUNCHES = {"x_update": 2 * 40 + 2 * 25, "tv_chambolle": 2 * 40, "convpair": 0}
+#: card-vs-CPU parity of the drivers: float32, bar on per-frame PSNR (dB) and
+#: on max |dx|, the same select_best pick on both sides
+DRIVERS_PARITY_BAR = (0.05, 1e-3)
 
 
 class SmokeFailure(RuntimeError):
@@ -303,22 +327,30 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    if "kernels" in phases and not {"k1", "k2", "k3", "flagship", "fastdvd", "ddnet"} <= phases:
-        ap.error("the kernels phase needs the k1, k2, k3, flagship, fastdvd and ddnet phases")
+    needed = {"k1", "k2", "k3", "flagship", "fastdvd", "ddnet", "tiled", "sequence"}
+    if "kernels" in phases and not needed <= phases:
+        ap.error(f"the kernels phase needs the {', '.join(sorted(needed))} phases")
     from adaptivepnp_sci_torch import (
         ADMMConfig,
         AdaptConfig,
         DDnet,
         FastDVDnet,
+        GapDeepConfig,
         GapTVConfig,
+        GrayConfig,
         admm_config_for,
         ddnet_demosaic,
         fastdvd_prior,
         ffdnet_prior,
+        gap_deep,
+        gap_denoise_gray,
         gap_tv,
         make_dm_spec,
         reconstruct_single_dispatch,
         two_stage_admm,
+        two_stage_admm_batched,
+        two_stage_admm_sequence,
+        two_stage_admm_tiled,
     )
     from adaptivepnp_sci_torch.ab_convpair import library_pair, make_inputs, time_ms
     from adaptivepnp_sci_torch.adapt.online import make_schedule
@@ -366,8 +398,26 @@ def main(argv: list[str]) -> int:
             "gap_lam0.5": (lambda: cuda_kernels.gap_x_update(theta, bd, y, phi, phis, 0.5, 0.01),
                            lambda: physics.gap_x_update(theta, bd, y, phi, phis, 0.5, 0.01)),
         }
+        # the item axis at the tiled path's group shape: 2 tiles of 512^2,
+        # each with its own masks, in one launch; and 2 items under one mask
+        thetas = torch.rand(2, nb, 4, h2, w2, generator=g).to(dev)
+        bds = ((torch.rand(2, nb, 4, h2, w2, generator=g) - 0.5) * 0.2).to(dev)
+        phis_i = (torch.rand(2, nb, 4, h2, w2, generator=g) > 0.5).float().to(dev)
+        ys = (torch.rand(2, nb, 4, h2, w2, generator=g).to(dev) * phis_i).sum(1)
+        psum_i = physics.phi_sum(phis_i, physics.PACKED_FRAME_AXIS)
+        ys_shared = (thetas * phi).sum(1)
+        item_cases = {
+            "admm_items2": (
+                lambda: cuda_kernels.admm_x_update(thetas, bds, ys, phis_i, psum_i, 0.55, 1.0),
+                lambda: physics.admm_x_update(thetas, bds, ys, phis_i, psum_i, 0.55, 1.0)),
+            "gap_items2_shared_phi": (
+                lambda: cuda_kernels.gap_x_update(thetas, bds, ys_shared, phi, phis, 0.5, 0.01),
+                lambda: physics.gap_x_update(thetas, bds, ys_shared, phi, phis, 0.5, 0.01)),
+        }
+        cases.update(item_cases)
         byts = (4 * theta.numel() + 2 * y.numel()) * 4
         bound_ms = byts / HBM_BYTES_PER_S * 1e3
+        byts_items = (4 * thetas.numel() + 2 * ys.numel()) * 4
         per = {}
         for name, (kern, plain) in cases.items():
             got, want = kern(), plain()
@@ -381,13 +431,21 @@ def main(argv: list[str]) -> int:
                          "ms": time_ms(kern, flush=flush),
                          "warm_l2_ms": time_ms(kern),
                          "plain_ms": time_ms(plain, flush=flush)}
-        emit("k1", shape=[nb, 4, h2, w2], tolerance="rtol 1e-5, atol 1e-6", cases=per,
-             bytes=byts, bound_us=bound_ms * 1e3,
+        # one item-axis launch against one launch per item
+        one_by_one = [cuda_kernels.admm_x_update(thetas[i], bds[i], ys[i], phis_i[i], psum_i[i],
+                                                 0.55, 1.0) for i in range(2)]
+        require(bool(torch.equal(torch.stack(one_by_one), item_cases["admm_items2"][0]())),
+                "k1: the item-axis launch differs from one launch per item")
+        emit("k1", shape=[nb, 4, h2, w2], items_shape=[2, nb, 4, h2, w2],
+             tolerance="rtol 1e-5, atol 1e-6", cases=per, bytes=byts, bound_us=bound_ms * 1e3,
+             items_bytes=byts_items, items_bound_us=byts_items / HBM_BYTES_PER_S * 1e6,
              bound_basis="bytes / 3.35 TB/s (H100 SXM HBM3 data sheet)", **card)
         report["x_update"] = {
             "max_abs_err": max(c["max_abs"] for c in per.values()),
             "ms": per["gap"]["ms"], "plain_ms": per["gap"]["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": "bytes"}
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "items2_ms": per["admm_items2"]["ms"], "items2_plain_ms": per["admm_items2"]["plain_ms"],
+            "items2_bound_ms": byts_items / HBM_BYTES_PER_S * 1e3}
 
     # ------------------------------------------------------------------ k2
     if "k2" in phases:
@@ -443,6 +501,33 @@ def main(argv: list[str]) -> int:
             others[name] = float((k_out - p_out).abs().max())
             require(bool(torch.allclose(k_out, p_out, rtol=1e-5, atol=1e-6))
                     and bool(torch.equal(k_it, p_it)), f"k2 {name}: disagrees with plain")
+        # the drivers' plane shapes: the 32 packed planes of a 2048^2 warm
+        # start (1024^2, the block design), and the 64 planes of a group of two
+        # 512 tiles with 32 px of overlap (288^2, a cluster of 8 strips of 36)
+        driver_shapes = {}
+        for name, shape, want_plan in (("warm_start_1024", (32, 1024, 1024), ("block", 1, 1024)),
+                                       ("window_288", (64, 288, 288), ("cluster", 8, 36))):
+            require(cuda_kernels.tv_plan(*shape[1:]) == want_plan,
+                    f"k2 {name}: planned {cuda_kernels.tv_plan(*shape[1:])}")
+            noise = torch.rand(*shape, generator=g)
+            inp = torch.nn.functional.avg_pool2d(noise[None], 5, 1, 2)[0].contiguous().to(dev)
+            k_out, k_it = cuda_kernels.tv_chambolle_planes_cuda(inp, 0.1, 2e-4, 5)
+            p_out, p_it = tv.tv_chambolle_planes(inp, 0.1, 2e-4, 5)
+            torch.cuda.synchronize()
+            d_err = float((k_out - p_out).abs().max())
+            require(bool(torch.allclose(k_out, p_out, rtol=1e-5, atol=1e-6))
+                    and bool(torch.equal(k_it, p_it)), f"k2 {name}: disagrees with plain ({d_err})")
+            n_it = int(k_it.sum())
+            d_byts = 2 * inp.numel() * 4
+            d_flops = n_it * shape[1] * shape[2] * TV_FLOPS_PER_PIXEL_ITER
+            driver_shapes[name] = {
+                "shape": list(shape), "plan": list(want_plan), "max_abs": d_err,
+                "plane_iterations": n_it,
+                "ms": time_ms(lambda: cuda_kernels.tv_chambolle_fused(inp, 0.1), flush=flush),
+                "plain_ms": time_ms(lambda: tv.tv_chambolle_multichannel(inp, 0.1), n=5,
+                                    flush=flush),
+                "bound_us": max(d_byts / HBM_BYTES_PER_S, d_flops / FP32_FLOPS) * 1e6}
+            others[name] = d_err
         again = [cuda_kernels.tv_chambolle_planes_cuda(real, 0.1, 2e-4, 5)[0] for _ in range(2)]
         require(bool(torch.equal(*again)), "k2: two calls on one input differ")
         sms_used = cuda_kernels.tv_sms_used(*real.shape)
@@ -476,8 +561,11 @@ def main(argv: list[str]) -> int:
              previous_warm_l2_ms=previous_warm_ms, cold_runs_new_old_old_new=cold,
              plain_ms=plain_ms, bytes=byts, flops=flops, bound_us=bound_ms * 1e3,
              bound_basis="max(bytes / 3.35 TB/s, flops / 67 TFLOP/s fp32)",
-             sms_used=sms_used, **card)
-        report["tv_chambolle"] = {"max_abs_err": err, "ms": ms, "previous_ms": previous_ms,
+             sms_used=sms_used, driver_shapes=driver_shapes, **card)
+        report["tv_chambolle"] = {"max_abs_err": max(err, *others.values()), "ms": ms,
+                                  "previous_ms": previous_ms,
+                                  "ms_1024": driver_shapes["warm_start_1024"]["ms"],
+                                  "ms_288": driver_shapes["window_288"]["ms"],
                                   "plain_ms": plain_ms, "bound_ms": bound_ms,
                                   "bound_by": "bytes" if byts / HBM_BYTES_PER_S
                                   >= flops / FP32_FLOPS else "operations"}
@@ -908,6 +996,249 @@ def main(argv: list[str]) -> int:
                  guard=guard_pick(upd), peak_mem_bytes=torch.cuda.max_memory_allocated(),
                  launches_per_reconstruction=counts, **card)
 
+    # ------------------------------------------------------ drivers parity
+    def second_measurement(sc, style="leaves"):
+        """A second snapshot of another scene under the first scene's masks."""
+        other = make_scene(b=sc.mask.shape[0], h=sc.mask.shape[1], w=sc.mask.shape[2],
+                           seed=43, style=style)
+        return (sc.mask * other.orig_bayer).sum(0).astype(np.float32), other.orig_bayer
+
+    def warm_starts(y_seq, mask, device):
+        return torch.stack([gap_tv(y, mask, GapTVConfig(iters=40), device=device).x_bayer
+                            for y in y_seq])
+
+    if "drivers_parity" in phases:
+        sc = make_scene(b=8, h=64, w=64, seed=42)
+        y2, o2 = second_measurement(sc)
+        y_seq, o_seq = np.stack([sc.meas, y2]), np.stack([sc.orig_bayer, o2])
+        ffd_params = ffdnet_from_flax(flax_style_ffdnet_params(16, 4, seed=0))
+        ffd = ffdnet_prior(FFDNet(nc=16, nb=4))
+        flagship_adapt = dict(lr=2e-6, update_per_iter=2, interval_iter=15, initial_iter=1)
+        carried = ADMMConfig(sigma=SIGMA, iters=ITERS, adapt=AdaptConfig(
+            **flagship_adapt, fresh_opt_per_trigger=False))
+        big = make_scene(b=8, h=128, w=128, seed=42)
+        tiled_cfg = ADMMConfig(sigma=FASTDVD_SIGMA, iters=(6, 4), denoiser="fastdvd",
+                               adapt=AdaptConfig(lr=2e-7, update_per_iter=2, interval_iter=5),
+                               select_best=True, select_best_holdout=0.05)
+        fdvd32 = fastdvd_prior(FastDVDnet())
+
+        def tiled_run(dev):
+            warm = gap_tv(big.meas, big.mask, GapTVConfig(iters=40), device=dev)
+            return two_stage_admm_tiled(
+                big.meas, big.mask, tiled_cfg, tile=64, prior=fdvd32, params=fastdvd_params,
+                orig_bayer=big.orig_bayer, x0_bayer=warm.x_bayer, overlap=8, tile_chunk=2,
+                generator=torch.Generator().manual_seed(0), device=dev)
+
+        def sequence_run(dev):
+            x0 = warm_starts(y_seq, sc.mask, dev)
+            return two_stage_admm_sequence(y_seq, sc.mask, carried, ffd, ffd_params, x0, o_seq,
+                                           device=dev)
+
+        def batched_run(dev):
+            x0 = warm_starts(y_seq, sc.mask, dev)
+            return two_stage_admm_batched(y_seq, sc.mask, ADMMConfig(sigma=SIGMA, iters=ITERS),
+                                          ffd, ffd_params, x0, o_seq, device=dev)
+
+        def gap_deep_run(dev):
+            return gap_deep(sc.meas, sc.mask, GapDeepConfig(
+                sigma=(25 / 255, 12 / 255), iters=(6, 4), lam=0.8,
+                adapt=AdaptConfig(lr=2e-6, interval_iter=5, fresh_opt_per_trigger=False)),
+                ffd, ffd_params, orig_bayer=sc.orig_bayer, device=dev)
+
+        def menon_run(dev):
+            warm = gap_tv(sc.meas, sc.mask, GapTVConfig(iters=40), device=dev)
+            return two_stage_admm(sc.meas, sc.mask, ADMMConfig(
+                sigma=SIGMA, iters=ITERS, demosaic_method="menon2007",
+                adapt=AdaptConfig(**flagship_adapt)), ffd, ffd_params, warm.x_bayer,
+                sc.orig_bayer, device=dev)
+
+        def gray_run(dev):
+            return gap_denoise_gray(sc.meas, sc.mask, GrayConfig(iters=(40,)),
+                                    orig=sc.orig_bayer, device=dev)
+
+        cases = {
+            # 40 warm-start x-updates and TV proxes at 128^2; 2 groups of 2
+            # windows of 80 (tile 64, overlap 8): 10 ADMM and 40 masked GAP-TV
+            # x-updates and 40 TV proxes each (the guard's candidate 0)
+            "tiled": (tiled_run, {"x_update": 40 + 2 * (10 + 40), "tv_chambolle": 40 + 2 * 40,
+                                  "convpair": 0}),
+            "sequence": (sequence_run, SEQUENCE_LAUNCHES),
+            # the two measurements' ADMM iterations in lockstep: 25 launches
+            "batched": (batched_run, {"x_update": 2 * 40 + 25, "tv_chambolle": 2 * 40,
+                                      "convpair": 0}),
+            "gap_deep": (gap_deep_run, {"x_update": 10, "tv_chambolle": 0, "convpair": 0}),
+            "menon2007": (menon_run, {"x_update": 65, "tv_chambolle": 40, "convpair": 0}),
+            "gray": (gray_run, {"x_update": 0, "tv_chambolle": 40, "convpair": 0}),
+        }
+        db_bar, dx_bar = DRIVERS_PARITY_BAR
+        for name, (run, want_counts) in cases.items():
+            t0 = time.perf_counter()
+            cpu = run("cpu")
+            cpu_s = time.perf_counter() - t0
+            cuda_kernels.reset_launches()
+            gpu = run("cuda")
+            torch.cuda.synchronize()
+            counts = dict(cuda_kernels.launches)
+            require(counts == want_counts, f"drivers_parity {name}: launches {counts}")
+            xg, xc = (gpu.x, cpu.x) if name == "gray" else (gpu.x_bayer, cpu.x_bayer)
+            require(bool(torch.isfinite(xg).all()), f"drivers_parity {name}: non-finite")
+            dpsnr = float((gpu.psnr_per_frame.cpu() - cpu.psnr_per_frame).abs().max())
+            dx = float((xg.cpu() - xc).abs().max())
+            fields = {}
+            if getattr(gpu, "resid_trace", None) is not None:
+                picks = {d: [int(i) for i in r.resid_trace.cpu().reshape(
+                    -1, r.resid_trace.shape[-1]).argmin(-1)] for d, r in (("cuda", gpu), ("cpu", cpu))}
+                fields["picks"] = picks
+                require(picks["cuda"] == picks["cpu"], f"drivers_parity {name}: picks {picks}")
+            if getattr(gpu, "variables", None) is not None and name != "batched":
+                fields["max_abs_d_variables"] = max(
+                    float((gpu.variables[k].cpu() - cpu.variables[k]).abs().max())
+                    for k in cpu.variables)
+            emit("drivers_parity", case=name, dtype="float32", max_dpsnr_db=dpsnr,
+                 max_abs_dx=dx, bar=f"{db_bar} dB, {dx_bar}, the same pick",
+                 psnr_cuda=gpu.psnr_per_frame.mean().item(),
+                 psnr_cpu=cpu.psnr_per_frame.mean().item(), cpu_seconds=cpu_s,
+                 launches=counts, **fields)
+            require(dpsnr <= db_bar and dx <= dx_bar,
+                    f"drivers_parity {name}: dPSNR {dpsnr} dB, max |dx| {dx}")
+
+    # --------------------------------------------------------------- tiled
+    if "tiled" in phases:
+        import adaptivepnp_sci_torch.solvers.two_stage_admm as admm_mod
+
+        size, tile = TILED["size"], TILED["tile"]
+        sc = make_scene(b=8, h=size, w=size, seed=42)
+        prior = fastdvd_prior(FastDVDnet(**modes["bf16"]))
+        cfg = ADMMConfig(sigma=FASTDVD_SIGMA, iters=FASTDVD_ITERS, denoiser="fastdvd",
+                         adapt=AdaptConfig(**FASTDVD_ADAPT))
+        group_ms: list[float] = []
+        run_admm = admm_mod.run_admm
+
+        def timed_run_admm(*a, **kw):
+            # the time of each group of tiles (one run_admm call), host clock
+            # between two synchronisations
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_admm(*a, **kw)
+            torch.cuda.synchronize()
+            group_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def snapshot(chunk):
+            warm = gap_tv(sc.meas, sc.mask, GapTVConfig(iters=40), orig_bayer=sc.orig_bayer,
+                          device="cuda")
+            res = two_stage_admm_tiled(
+                sc.meas, sc.mask, cfg, tile=tile, prior=prior, params=fastdvd_params,
+                orig_bayer=sc.orig_bayer, x0_bayer=warm.x_bayer, tile_chunk=chunk,
+                generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+            return warm, res
+
+        admm_mod.run_admm = timed_run_admm
+        try:
+            for chunk in (TILED["tile_chunk"], 4):
+                secs, groups = [], []
+                reps = 3 if chunk == TILED["tile_chunk"] else 2  # one warm-up first
+                for rep in range(reps):
+                    group_ms.clear()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    cuda_kernels.reset_launches()
+                    t0 = time.perf_counter()
+                    warm, res = snapshot(chunk)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    counts = dict(cuda_kernels.launches)
+                    require(counts == TILED_LAUNCHES[chunk],
+                            f"tiled chunk {chunk}: launches {counts}")
+                    by_shape = dict(cuda_kernels.convpair_launches)
+                    require(by_shape == {shp: 16 * 36 * 4 for shp in CONVPAIR_MAIN_SHAPES.values()},
+                            f"tiled chunk {chunk}: conv pair launches {by_shape}")
+                    if chunk == TILED["tile_chunk"]:
+                        report.setdefault("launches_tiled", counts)
+                        report.setdefault("launches_convpair_tiled", by_shape)
+                    if rep:
+                        secs.append(dt)
+                        groups.append(list(group_ms))
+                peak = torch.cuda.max_memory_allocated()
+                require(tuple(res.x_bayer.shape) == (8, size, size)
+                        and tuple(res.x_rgb.shape) == (8, size, size, 3), "tiled: shapes")
+                require(bool(torch.isfinite(res.x_bayer).all() & torch.isfinite(res.x_rgb).all()),
+                        f"tiled chunk {chunk}: non-finite output")
+                require(set(res.variables) == set(fastdvd_params)
+                        and res.variables["temp1.inc.convblock.0.weight"].shape
+                        == fastdvd_params["temp1.inc.convblock.0.weight"].shape,
+                        "tiled: the shared weights are not one copy")
+                moved = max(float((res.variables[k].cpu() - fastdvd_params[k]).abs().max())
+                            for k in fastdvd_params if k.endswith("weight"))
+                require(moved > 0, "tiled: the adaptation did not move the weights")
+                med = statistics.median(secs)
+                warm_psnr = warm.psnr_per_frame.mean().item()
+                emit("tiled", shape=[8, size, size], tile=tile, overlap=0, tile_chunk=chunk,
+                     groups=16 // chunk, mode="bf16 FastDVDnet (remat off), adaptation shared "
+                     "over tiles", weights="weights/fastdvd.npz",
+                     seconds_per_snapshot=med, seconds_runs=secs, frames_per_s=8 / med,
+                     group_ms=groups[-1], group_ms_median=statistics.median(groups[-1]),
+                     warm_start_psnr_db=warm_psnr, psnr_db=res.psnr_per_frame.mean().item(),
+                     ssim=res.ssim_per_frame.mean().item(),
+                     gain_over_warm_start_db=res.psnr_per_frame.mean().item() - warm_psnr,
+                     max_abs_weight_change=moved, peak_mem_bytes=peak,
+                     launches_per_snapshot=counts, **card)
+        finally:
+            admm_mod.run_admm = run_admm
+        with torch.no_grad():
+            warm_ms = time_ms(lambda: gap_tv(sc.meas, sc.mask, GapTVConfig(iters=40),
+                                             device="cuda"), n=3)
+        emit("tiled_breakdown", warm_start_2048_40_ms=warm_ms, **card)
+        del sc, warm, res
+
+    # ------------------------------------------------------------ sequence
+    if "sequence" in phases:
+        params = ffdnet_from_flax(flax_style_ffdnet_params(96, 12, seed=0))
+        prior = ffdnet_prior(FFDNet(nc=96, nb=12))
+        sc = make_scene(b=8, h=512, w=512, seed=42)
+        y2, o2 = second_measurement(sc)
+        y_seq, o_seq = np.stack([sc.meas, y2]), np.stack([sc.orig_bayer, o2])
+        cfg = ADMMConfig(sigma=SIGMA, iters=ITERS, adapt=AdaptConfig(
+            lr=2e-6, update_per_iter=2, interval_iter=15, initial_iter=1,
+            fresh_opt_per_trigger=False))
+
+        def run_sequence(y, o):
+            x0 = warm_starts(y, sc.mask, "cuda")
+            return two_stage_admm_sequence(y, sc.mask, cfg, prior, params, x0, o, device="cuda")
+
+        secs = []
+        for rep in range(2):  # one warm-up, then one timed
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = run_sequence(y_seq, o_seq)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts = dict(cuda_kernels.launches)
+            require(counts == SEQUENCE_LAUNCHES, f"sequence: launches {counts}")
+            report.setdefault("launches_sequence", counts)
+        peak = torch.cuda.max_memory_allocated()
+        first = run_sequence(y_seq[:1], o_seq[:1])
+        require(tuple(res.x_bayer.shape) == (2, 8, 512, 512), "sequence: shapes")
+        require(bool(torch.isfinite(res.x_bayer).all()), "sequence: non-finite output")
+        # the first measurement of the pair is the sequence of one (up to the
+        # library's nondeterministic backward sums)
+        first_dx = float((first.x_bayer[0] - res.x_bayer[0]).abs().max())
+        require(first_dx <= 1e-3, f"sequence: the first measurement moved by {first_dx}")
+        require(int(res.opt_state["state"][0]["step"]) == 4, "sequence: the Adam was not carried")
+        delta = max(float((res.variables[k] - first.variables[k]).abs().max()) for k in params)
+        delta0 = max(float((first.variables[k].cpu() - params[k]).abs().max()) for k in params)
+        require(delta > 0, "sequence: the second measurement did not adapt")
+        emit("sequence", shape=[2, 8, 512, 512], ffdnet={"nc": 96, "nb": 12},
+             weights="random, Flax default init from numpy seed 0", optimizer="carried Adam",
+             seconds_per_measurement=secs[1] / 2, seconds_runs=secs,
+             psnr_db=[float(p) for p in res.psnr_per_frame.mean(-1)],
+             max_abs_weight_delta_second_from_first=delta,
+             max_abs_weight_delta_first_from_start=delta0, first_measurement_max_abs_dx=first_dx,
+             adam_steps=int(res.opt_state["state"][0]["step"]), peak_mem_bytes=peak,
+             launches=counts, **card)
+
     # ------------------------------------------------------------- kernels
     if "kernels" in phases:
         # launches on the main paths: the flagship's for its two kernels, the
@@ -915,14 +1246,20 @@ def main(argv: list[str]) -> int:
         # deep-demosaicking row
         launches = dict(report["launches"])
         launches_ddnet = dict(report["launches_ddnet"])
+        launches_tiled = dict(report["launches_tiled"])
+        launches_sequence = dict(report["launches_sequence"])
         for name, shape in CONVPAIR_MAIN_SHAPES.items():
             launches[f"convpair_{name}"] = report["launches_convpair"][shape]
             launches_ddnet[f"convpair_{name}"] = report["launches_convpair_ddnet"][shape]
+            launches_tiled[f"convpair_{name}"] = report["launches_convpair_tiled"][shape]
+            launches_sequence[f"convpair_{name}"] = 0
         pallas = {"x_update": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:58",
                   "tv_chambolle": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:93",
                   "convpair": "scripts/ab_pallas_convpair.py:47"}
         sources = {"x_update": "x_update.cu", "tv_chambolle": "tv_chambolle.cu",
                    "convpair": "convpair_wgmma.cu"}
+        extra = {"x_update": ("items2_ms", "items2_plain_ms", "items2_bound_ms"),
+                 "tv_chambolle": ("ms_1024", "ms_288")}
         rows = []
         for name, kernel in (("x_update", "x_update"), ("tv_chambolle", "tv_chambolle"),
                              *((f"convpair_{n}", "convpair") for n in CONVPAIR_MAIN_SHAPES)):
@@ -931,12 +1268,17 @@ def main(argv: list[str]) -> int:
                          "source": f"adaptivepnp_sci_torch/csrc/{sources[kernel]}",
                          "replaces": pallas[kernel], "launches": launches[name],
                          "launches_ddnet_row": launches_ddnet[name],
+                         "launches_tiled": launches_tiled[name],
+                         "launches_sequence": launches_sequence[name],
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                          "previous_ms": r.get("previous_ms"), "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                         "library_ms": r.get("library_ms")})
-        require(all(r["launches"] > 0 and r["launches_ddnet_row"] > 0 for r in rows),
-                f"a kernel was never launched: {rows}")
+                         "library_ms": r.get("library_ms"),
+                         **{k: r[k] for k in extra.get(name, ())}})
+        require(all(r["launches"] > 0 and r["launches_ddnet_row"] > 0 and r["launches_tiled"] > 0
+                    for r in rows), f"a kernel was never launched: {rows}")
+        require(all(r["launches_sequence"] > 0 for r in rows[:2]),
+                f"the sequence path missed a kernel: {rows}")
         print(json.dumps({"kernels": rows}), flush=True)
 
     foreign = sorted(m for m in sys.modules

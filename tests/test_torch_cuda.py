@@ -61,6 +61,53 @@ def test_x_update_kernel_matches_plain(cuda, shape, misaligned):
     assert cuda_kernels.launches["x_update"] == before + 3
 
 
+@pytest.mark.parametrize("shared_phi", [False, True])
+@pytest.mark.parametrize("shape", [(3, 8, 32, 64), (2, 3, 5, 7)])
+def test_x_update_kernel_takes_an_item_axis(cuda, shape, shared_phi):
+    """N items in one launch (the tiles of a scene, each with its own masks;
+    or a batch under one mask, item stride 0): equal to the plain version on
+    the item tensors and to N single-item launches."""
+    n, b, h, w = shape
+    g = torch.Generator().manual_seed(4)
+    theta = torch.rand(n, b, 4, h, w, generator=g).to(cuda)
+    bd = ((torch.rand(n, b, 4, h, w, generator=g) - 0.5) * 0.2).to(cuda)
+    phi = (torch.rand(*(() if shared_phi else (n,)), b, 4, h, w, generator=g) > 0.5).float().to(cuda)
+    y = (torch.rand(n, b, 4, h, w, generator=g).to(cuda) * phi).sum(1)
+    phis = physics.phi_sum(phi, physics.PACKED_FRAME_AXIS)
+    before = cuda_kernels.launches["x_update"]
+    got = cuda_kernels.admm_x_update(theta, bd, y, phi, phis, 0.55, 1.0)
+    torch.testing.assert_close(got, physics.admm_x_update(theta, bd, y, phi, phis, 0.55, 1.0),
+                               **TOL)
+    gap = cuda_kernels.gap_x_update(theta, bd, y, phi, phis, 0.5, 0.01)
+    torch.testing.assert_close(gap, physics.gap_x_update(theta, bd, y, phi, phis, 0.5, 0.01),
+                               **TOL)
+    assert cuda_kernels.launches["x_update"] == before + 2
+    for i in range(n):
+        pi, si = (phi, phis) if shared_phi else (phi[i], phis[i])
+        one = cuda_kernels.admm_x_update(theta[i], bd[i], y[i], pi, si, 0.55, 1.0)
+        assert torch.equal(one, got[i])
+    with pytest.raises(ValueError):
+        cuda_kernels.admm_x_update(theta, bd, y[:1], phi, phis, 0.55, 1.0)
+
+
+@pytest.mark.parametrize("shape,design", [
+    ((4, 1024, 1024), "block"),     # the packed planes of a 2048^2 warm start
+    ((16, 288, 288), "cluster"),    # a 512 tile with 32 px of overlap: 8 strips of 36 rows
+])
+def test_tv_kernel_at_the_drivers_plane_shapes(cuda, shape, design):
+    assert cuda_kernels.tv_plan(*shape[1:])[0] == design
+    if design == "cluster":
+        assert cuda_kernels.tv_plan(*shape[1:])[1:] == (8, 36)
+    g = torch.Generator().manual_seed(5)
+    noise = torch.rand(*shape, generator=g)
+    smooth = torch.nn.functional.avg_pool2d(noise[None], 5, 1, 2)[0].contiguous()
+    for x in (noise.to(cuda), smooth.to(cuda)):
+        got, it = cuda_kernels.tv_chambolle_planes_cuda(x, 0.1, 2e-4, 5)
+        want, want_it = tv.tv_chambolle_planes(x, 0.1, 2e-4, 5)
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(it, want_it)
+
+
 def test_tv_kernel_matches_plain_and_golden(cuda):
     g = torch.Generator().manual_seed(1)
     x = torch.rand(6, 40, 1100, generator=g).to(cuda)  # rows wider than a block

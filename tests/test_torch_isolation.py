@@ -50,6 +50,31 @@ assert rgb.shape == (8, 16, 16, 3) and bool(rgb.isfinite().all())
 assert make_dm_spec(DDnet()).update_per_iter == 1
 state, _, loss = make_dm_adapt_fn(DDnet())(dd, None, torch.from_numpy(sc.orig_bayer))
 assert state.keys() == dd.keys() and bool(loss.isfinite())
+# the multi-measurement drivers, the carried Adam, gap_deep, Menon and gray
+from adaptivepnp_sci_torch import (GapDeepConfig, GrayConfig, gap_deep, gap_denoise_gray,
+                                   menon2007, two_stage_admm_batched, two_stage_admm_sequence,
+                                   two_stage_admm_tiled)
+from adaptivepnp_sci_torch.models.convert import (adam_state_from_optax, adam_state_to_optax,
+                                                  ffdnet_from_flax, ffdnet_to_flax)
+carried = ADMMConfig(sigma=(25 / 255,), iters=(3,), demosaic_method="menon2007",
+                     adapt=AdaptConfig(interval_iter=2, initial_iter=0, fresh_opt_per_trigger=False))
+tiled = two_stage_admm_tiled(sc.meas, sc.mask, carried, tile=8, prior=prior, overlap=2,
+                             tile_chunk=2, orig_bayer=sc.orig_bayer, device="cpu")
+assert tiled.x_bayer.shape == (8, 16, 16) and int(tiled.opt_state["state"][0]["step"]) == 4
+count, mu, nu = adam_state_to_optax(tiled.opt_state, prior.model, ffdnet_to_flax)
+state = adam_state_from_optax(count, mu, nu, prior.model, ffdnet_from_flax, 2e-6)
+assert torch.equal(state["state"][0]["exp_avg"], tiled.opt_state["state"][0]["exp_avg"])
+y2 = np.stack([sc.meas, sc.meas])
+seq = two_stage_admm_sequence(y2, sc.mask, carried, prior, tiled.variables, device="cpu")
+assert seq.x_bayer.shape == (2, 8, 16, 16) and int(seq.opt_state["state"][0]["step"]) == 4
+bat = two_stage_admm_batched(y2, sc.mask, ADMMConfig(sigma=(0.1,), iters=(2,), denoiser="tv"),
+                             device="cpu")
+assert bat.x_bayer.shape == (2, 8, 16, 16)
+gd = gap_deep(sc.meas, sc.mask, GapDeepConfig(sigma=(0.1,), iters=(2,)), prior, None, device="cpu")
+assert gd.x_rgb.shape == (8, 16, 16, 3)
+assert menon2007(torch.from_numpy(sc.orig_bayer)).shape == (8, 16, 16, 3)
+gr = gap_denoise_gray(sc.meas, sc.mask, GrayConfig(iters=(3,)), device="cpu")
+assert bool(gr.x.isfinite().all())
 try:
     ab_convpair.main(32, 16, 1)
 except RuntimeError as err:

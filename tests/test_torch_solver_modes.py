@@ -201,19 +201,15 @@ def test_invalid_combinations_raise_value_error(case):
                              **extra)
 
 
-@pytest.mark.parametrize("case", ["menon2007", "gap_deep", "adapt_mask", "adapt_crop",
-                                  "carried_adapt_opt"])
+@pytest.mark.parametrize("case", ["gap_deep", "adapt_mask", "adapt_crop"])
 def test_still_unported_options_raise(case):
     sc = tmake_scene(b=8, h=16, w=16, seed=0)
     adapt = TAdaptConfig(interval_iter=2)
     prior = tfastdvd_prior(TFastDVDnet())
     kw, p = {
-        "menon2007": (dict(demosaic_method="menon2007"), prior),
         "gap_deep": (dict(denoiser="gap_deep"), prior),
         "adapt_mask": (dict(adapt=adapt), tfastdvd_prior(TFastDVDnet(), adapt_mask=("s", 0.1))),
         "adapt_crop": (dict(adapt=dataclasses.replace(adapt, crop=8)), prior),
-        "carried_adapt_opt": (dict(adapt=dataclasses.replace(adapt, fresh_opt_per_trigger=False)),
-                              prior),
     }[case]
     cfg = tadmm.ADMMConfig(sigma=(0.1,), iters=(3,), **{"denoiser": "fastdvd", **kw})
     with pytest.raises(NotImplementedError):
@@ -221,6 +217,37 @@ def test_still_unported_options_raise(case):
     with pytest.raises(NotImplementedError):
         tend.reconstruct_single_dispatch(sc.meas, sc.mask, tgap.GapTVConfig(iters=1), cfg, p,
                                          None, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["menon2007", "carried_adapt_opt"])
+def test_lifted_options_match_jax(scene, ffdnet, case):
+    """The options the multi-measurement slice ported, once refused: Menon
+    2007 demosaicking, and a carried Adam state
+    (``fresh_opt_per_trigger=False``) through two triggers, on the FFDNet
+    branch; the carried Adam end to end too."""
+    sc, x0 = scene
+    adapt = dict(lr=2e-6, update_per_iter=1, interval_iter=2)
+    kw = dict(sigma=SIGMA, iters=ITERS)
+    if case == "menon2007":
+        kw["demosaic_method"] = "menon2007"
+    else:
+        adapt["fresh_opt_per_trigger"] = False
+    ref, got = solve_both(sc, x0, ffdnet, kw, adapt)
+    assert_parity(got, ref, db=1e-3, dx=1e-4)
+    np.testing.assert_allclose(got.x_rgb.numpy(), np.asarray(ref.x_rgb), atol=1e-3)
+    assert (got.opt_state is None) == (case == "menon2007")
+    if case == "menon2007":
+        return
+    (jprior, variables), (tprior, params) = ffdnet
+    e2e = reconstruct_single_dispatch(
+        jnp.asarray(sc.meas), jnp.asarray(sc.mask), GapTVConfig(iters=5),
+        ADMMConfig(**kw, adapt=AdaptConfig(**adapt)), jprior, variables,
+        orig=jnp.asarray(sc.orig_bayer))
+    tgot = tend.reconstruct_single_dispatch(
+        sc.meas, sc.mask, tgap.GapTVConfig(iters=5),
+        tadmm.ADMMConfig(**kw, adapt=TAdaptConfig(**adapt)), tprior, params,
+        orig=sc.orig_bayer, device="cpu")
+    assert_parity(tgot, e2e, db=1e-3, dx=1e-4)
 
 
 @pytest.mark.parametrize("deep", [False, True])

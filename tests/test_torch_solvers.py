@@ -248,7 +248,7 @@ def test_fastdvd_noise_is_drawn_from_the_generator():
 
 def test_unported_options_raise():
     sc = tmake_scene(b=8, h=16, w=16, seed=0)
-    for kw in ({"demosaic_method": "menon2007"}, {"denoiser": "gap_deep"}):
+    for kw in ({"denoiser": "gap_deep"},):
         cfg = tadmm.ADMMConfig(sigma=(0.1,), iters=(1,), **{"denoiser": "tv", **kw})
         with pytest.raises(NotImplementedError):
             tadmm.two_stage_admm(sc.meas, sc.mask, cfg, device="cpu")
