@@ -35,7 +35,10 @@ class EndToEndResult(NamedTuple):
     ssim_per_frame: Tensor
     psnr_trace: Tensor
     variables: Any
-    #: (T + 1,) select_best ranking statistics (see ``ADMMResult``), or None
+    #: the carried Adam's state dict (``fresh_opt_per_trigger=False``), or None
+    opt_state: Any = None
+    #: (T + 1,) select_best ranking statistics (see ``ADMMResult``), or None;
+    #: the fields before it are the JAX ``EndToEndResult``'s, in its order
     resid_trace: Tensor | None = None
 
 
@@ -77,4 +80,5 @@ def reconstruct_single_dispatch(
             None if orig_t is None else orig_t[None], st.generator, demosaic_fn, None, st.opt)
         x_bayer = bayer.unpack(theta[0])
         p, s = frame_metrics(orig_t, x_bayer)
-    return EndToEndResult(xhat[0], x_bayer, p, s, trace[0], st.states()[0], resids)
+    variables, opt_state, _, _ = st.states()
+    return EndToEndResult(xhat[0], x_bayer, p, s, trace[0], variables, opt_state, resids)

@@ -117,16 +117,17 @@ class ADMMResult(NamedTuple):
     ssim_per_frame: Tensor   # (B,)
     psnr_trace: Tensor       # (T,) per-iteration PSNR (zeros without orig)
     variables: Any           # the (possibly adapted) denoiser state dict
+    #: the carried denoiser Adam's state dict (``fresh_opt_per_trigger=False``),
+    #: to continue adaptation on the next measurement; None otherwise
+    opt_state: Any = None
     dm_variables: Any = None  # the in-scan-adapted demosaicker state dict
     dm_opt_state: Any = None  # and its Adam state dict
     #: (T + 1,) the select_best ranking statistic of candidate 0 (the warm
     #: start) and of each iterate; the first minimum is the returned one.
     #: None without select_best. The drivers stack it: (T_meas, T + 1) for a
-    #: sequence or a batch, (groups, T + 1) for tiles.
+    #: sequence or a batch, (groups, T + 1) for tiles. The fields before it
+    #: are the JAX ``ADMMResult``'s, in its order.
     resid_trace: Tensor | None = None
-    #: the carried denoiser Adam's state dict (``fresh_opt_per_trigger=False``),
-    #: to continue adaptation on the next measurement; None otherwise
-    opt_state: Any = None
 
 
 class DmSpec(NamedTuple):
@@ -547,8 +548,8 @@ def two_stage_admm(
         x_bayer = bayer.unpack(theta[0])
         p, s = frame_metrics(orig, x_bayer)
     variables, opt_out, dm_vars, dm_opt = st.states()
-    return ADMMResult(xhat[0], x_bayer, p, s, trace[0], variables, dm_vars, dm_opt,
-                      resids, opt_out)
+    return ADMMResult(xhat[0], x_bayer, p, s, trace[0], variables, opt_out, dm_vars, dm_opt,
+                      resids)
 
 
 def stack_states(states: list[Any]) -> Any:
@@ -617,7 +618,7 @@ def two_stage_admm_sequence(
             runs.append(ADMMResult(xhat[0], x_bayer, p, s, trace[0], None, resid_trace=resids))
         out = _stack_results(runs)
     variables, opt_state, dm_vars, dm_opt = st.states()
-    return ADMMResult(*out[:5], variables, dm_vars, dm_opt, out[5], opt_state)
+    return ADMMResult(*out[:5], variables, opt_state, dm_vars, dm_opt, out[5])
 
 
 def two_stage_admm_batched(
@@ -666,9 +667,9 @@ def two_stage_admm_batched(
                                demosaic_fn, dm_spec, dm_variables, dm_opt_state, opt_state)
                 for t in range(n)]
         states = [stack_states([getattr(r, f) for r in runs]) if getattr(runs[0], f) is not None
-                  else None for f in ("variables", "dm_variables", "dm_opt_state", "opt_state")]
+                  else None for f in ("variables", "opt_state", "dm_variables", "dm_opt_state")]
         out = _stack_results(runs)
-        return ADMMResult(*out[:5], states[0], states[1], states[2], out[5], states[3])
+        return ADMMResult(*out[:5], *states, out[5])
     with full_f32(), torch.no_grad():
         st = SolveState(config, prior, params, device)
         x0_p = (physics.adjoint(bayer.pack(y), bayer.pack(phi), physics.PACKED_FRAME_AXIS)
@@ -807,5 +808,5 @@ def two_stage_admm_tiled(
         trace = trace.mean(dim=0) if orig is not None else torch.zeros_like(trace[0])
     variables, opt_out, dm_vars, dm_opt = st.states()
     resid_trace = torch.stack(resids) if resids[0] is not None else None
-    return ADMMResult(x_rgb, x_bayer, p, s, trace, variables, dm_vars, dm_opt,
-                      resid_trace, opt_out)
+    return ADMMResult(x_rgb, x_bayer, p, s, trace, variables, opt_out, dm_vars, dm_opt,
+                      resid_trace)
