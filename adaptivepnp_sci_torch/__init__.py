@@ -8,8 +8,10 @@ one-stage GAP with a deep prior, the grayscale solver, the priors and the
 DDnet demosaicker), ``models`` (FFDNet, FastDVDnet, DDnet and the Flax weight
 and Adam-state bridge), ``adapt`` (online adaptation of the denoiser, with a
 fresh or a carried Adam, and of DDnet), ``configs.scenes`` (the scene
-tables), ``ops`` (with Menon 2007 demosaicking and the patch ops) and
-``data``.
+tables), ``ops`` (with Menon 2007 demosaicking and the patch ops),
+``data`` (synthetic scenes and the ``.mat`` scene and result files),
+``utils.image`` (host PSNR/SSIM), ``pipelines`` (the drivers over a
+multi-measurement scene) and ``cli`` (``python -m adaptivepnp_sci_torch.cli``).
 Plain tensor code is PyTorch; the repository's three Pallas kernels (the
 x-update and the TV prox of the flagship path, the fused conv pair of the
 FastDVDnet prior's bf16 mode) are hand-written CUDA kernels for Hopper

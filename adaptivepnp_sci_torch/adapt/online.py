@@ -52,7 +52,10 @@ class AdaptConfig:
     (PyTorch names, e.g. ``"model.0."``); when set, only matching parameters
     are updated and the rest stay bitwise frozen.
 
-    ``crop`` (a random crop for the adaptation loss) is not ported yet.
+    ``crop``: the adaptation loss on a random ``crop x crop`` window (even
+    offsets, so the Bayer phase holds) that slices the frame cube, the
+    measurement and the masks alike; the offsets are drawn per trigger (per
+    item, on an item axis) by :func:`crop_offsets`.
     """
 
     lr: float | tuple[float, ...] = 2e-6
@@ -153,10 +156,32 @@ def measurement_loss_fn(
 
 def check_adapt_supported(prior: "Prior", adapt_cfg: AdaptConfig) -> None:
     """Raise ``NotImplementedError`` for an adaptation option not ported yet."""
-    if adapt_cfg.crop is not None:
-        raise NotImplementedError("AdaptConfig.crop is not ported yet")
     if prior.adapt_mask is not None:
         raise NotImplementedError("Prior.adapt_mask is not ported yet")
+
+
+def draws_randoms(prior: "Prior", adapt_cfg: AdaptConfig | None) -> bool:
+    """Whether the adaptation draws from a generator: input noise or crop
+    offsets."""
+    return adapt_cfg is not None and (prior.adapt_noise_std > 0 or adapt_cfg.crop is not None)
+
+
+def check_crop(crop: int, h: int, w: int) -> None:
+    """The JAX package's refusals of an adaptation crop for ``(h, w)`` frames."""
+    if crop % 2 or h % 2 or w % 2:
+        raise ValueError(f"crop/frame dims must be even, got crop={crop} frame=({h},{w})")
+    if crop > h or crop > w:
+        raise ValueError(f"crop {crop} exceeds frame ({h},{w})")
+
+
+def crop_offsets(generator: torch.Generator, h: int, w: int, crop: int) -> tuple[int, int]:
+    """The even offsets ``(oy, ox)`` of one adaptation crop window, uniform
+    over the windows that fit in ``(h, w)``, drawn from ``generator`` (the JAX
+    package draws them from its own PRNG key, so the numbers differ)."""
+    dev = generator.device
+    oy = torch.randint(0, (h - crop) // 2 + 1, (), generator=generator, device=dev)
+    ox = torch.randint(0, (w - crop) // 2 + 1, (), generator=generator, device=dev)
+    return int(oy) * 2, int(ox) * 2
 
 
 def carried_adam(net: nn.Module, adapt_cfg: AdaptConfig,
@@ -203,11 +228,13 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
     With ``prior.adapt_noise_std > 0`` the trigger first adds gaussian noise
     of that standard deviation to its input, drawn from ``generator`` on the
     generator's device (so a CPU generator gives the same draw wherever the
-    solver runs)."""
+    solver runs). With ``adapt_cfg.crop`` it then draws each item's crop
+    window from ``generator`` (:func:`crop_offsets`)."""
     check_adapt_supported(prior, adapt_cfg)
     stages = resolve_stages(adapt_cfg)
     filters = adapt_cfg.trainable_filter
     fresh = adapt_cfg.fresh_opt_per_trigger
+    crop = None if adapt_cfg.crop is None else int(adapt_cfg.crop)
 
     def adapt(net: nn.Module, rgb_in: Tensor, sigma: Tensor, y_p: Tensor, phi_p: Tensor,
               y_f: Tensor, phi_f: Tensor, generator: torch.Generator | None = None,
@@ -221,14 +248,26 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
                                 device=generator.device)
             rgb_in = rgb_in + prior.adapt_noise_std * noise.to(rgb_in.device)
         rgb_in = rgb_in.detach()
-        if rgb_in.dim() == 5:
-            per_phi = phi_f.dim() == 4
-            losses = [measurement_loss_fn(prior, net, rgb_in[i], sigma, y_p[i],
-                                          phi_p[i] if per_phi else phi_p, y_f[i],
-                                          phi_f[i] if per_phi else phi_f)
-                      for i in range(rgb_in.shape[0])]
-        else:
-            losses = [measurement_loss_fn(prior, net, rgb_in, sigma, y_p, phi_p, y_f, phi_f)]
+        items = ([(rgb_in, y_p, phi_p, y_f, phi_f)] if rgb_in.dim() == 4 else
+                 [(rgb_in[i], y_p[i], phi_p[i] if phi_f.dim() == 4 else phi_p, y_f[i],
+                   phi_f[i] if phi_f.dim() == 4 else phi_f) for i in range(rgb_in.shape[0])])
+        if crop is not None:
+            # the loss on a Bayer-aligned window of each item: the forward
+            # model is pixel-separable, so the frames, y and phi are sliced alike
+            if generator is None:
+                raise ValueError("the adaptation crop needs a torch.Generator")
+            h, w = phi_f.shape[-2:]
+            check_crop(crop, h, w)
+            cropped = []
+            for rgb_i, _, _, y_i, phi_i in items:
+                oy, ox = crop_offsets(generator, h, w, crop)
+                win = (slice(oy, oy + crop), slice(ox, ox + crop))
+                y_c, phi_c = y_i[win], phi_i[(slice(None), *win)]
+                cropped.append((rgb_i[(slice(None), *win)], bayer.pack(y_c), bayer.pack(phi_c),
+                                y_c, phi_c))
+            items = cropped
+        losses = [measurement_loss_fn(prior, net, r, sigma, yp, pp, yf, pf)
+                  for r, yp, pp, yf, pf in items]
         named = list(net.named_parameters())
         on = [filters is None or any(f in name for f in filters) for name, _ in named]
         trainable = [p for (_, p), keep in zip(named, on) if keep]

@@ -74,14 +74,51 @@ def ffdnet_to_flax(state_dict: Mapping[str, Tensor]) -> dict:
     return {"params": params}
 
 
-def load_ffdnet(path: str) -> dict[str, Tensor]:
-    """Load a KAIR FFDNet checkpoint (``ffdnet_color.pth``) as a state dict
-    for :class:`~adaptivepnp_sci_torch.models.ffdnet.FFDNet` on the CPU: the
-    layouts match, once a DataParallel ``module.`` prefix is dropped."""
+def load_torch_state_dict(path: str) -> dict[str, Tensor]:
+    """Read a reference ``.pth`` checkpoint into a flat name -> tensor dict on
+    the CPU: a ``state_dict`` wrapper (DDnet's checkpoints) is opened and a
+    DataParallel ``module.`` prefix dropped."""
     sd = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
-    return {k.removeprefix("module."): v for k, v in sd.items()}
+    return {k.removeprefix("module."): torch.as_tensor(v) for k, v in sd.items()}
+
+
+def load_ffdnet(path: str) -> dict[str, Tensor]:
+    """Load a KAIR FFDNet checkpoint (``ffdnet_color.pth``) as a state dict
+    for :class:`~adaptivepnp_sci_torch.models.ffdnet.FFDNet` on the CPU: the
+    layouts match."""
+    return load_torch_state_dict(path)
+
+
+def load_fastdvdnet(path: str) -> dict[str, Tensor]:
+    """Load a reference FastDVDnet checkpoint as a state dict for
+    :class:`~adaptivepnp_sci_torch.models.fastdvdnet.FastDVDnet`: the port
+    keeps the published model's ``convblock`` indices, so the names match."""
+    return load_torch_state_dict(path)
+
+
+def load_ddnet(path: str) -> dict[str, Tensor]:
+    """Load a reference DDnet checkpoint as a state dict for
+    :class:`~adaptivepnp_sci_torch.models.ddnet.DDnet`
+    (:func:`ddnet_state_dict_from_reference`)."""
+    return ddnet_state_dict_from_reference(load_torch_state_dict(path))
+
+
+def flax_param_path(name: str) -> str:
+    """The ``/``-joined Flax ``params`` path of the FFDNet or FastDVDnet
+    parameter ``name`` (e.g. ``model.2.weight`` -> ``conv_1/kernel``,
+    ``temp2.inc.convblock.1.weight`` -> ``temp2/inc/bn0/scale``): the string
+    the JAX package matches ``AdaptConfig.trainable_filter`` against."""
+    *parts, leaf = name.split(".")
+    if parts[0] == "model":  # FFDNet: a conv at every even index
+        return f"conv_{int(parts[1]) // 2}/{'kernel' if leaf == 'weight' else 'bias'}"
+    path = _fdvd_flax_path(parts)
+    if path[-1].startswith("bn"):
+        leaf = "scale" if leaf == "weight" else "bias"
+    elif leaf == "weight":
+        leaf = "kernel"
+    return "/".join((*path, leaf))
 
 
 # Flax scope -> index inside a (Conv, BN, ReLU, Conv, BN, ReLU) ``convblock``

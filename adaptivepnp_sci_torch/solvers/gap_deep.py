@@ -24,6 +24,7 @@ from adaptivepnp_sci_torch.adapt.online import (
     AdaptConfig,
     carried_adam,
     check_adapt_supported,
+    draws_randoms,
     make_adapt_fn,
     make_schedule,
 )
@@ -96,7 +97,7 @@ def gap_deep(
         if config.adapt is not None:
             adapt = make_adapt_fn(prior, config.adapt)
             opt = carried_adam(net, config.adapt, opt_state)
-            if prior.adapt_noise_std > 0 and generator is None:
+            if draws_randoms(prior, config.adapt) and generator is None:
                 generator = torch.Generator(device=device).manual_seed(0)
         sigmas = torch.as_tensor(sigmas_np, device=x0.device)
         x, theta, b = x0, x0, torch.zeros_like(x0)

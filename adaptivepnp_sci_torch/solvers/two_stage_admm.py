@@ -52,6 +52,7 @@ from adaptivepnp_sci_torch.adapt.online import (
     AdaptConfig,
     carried_adam,
     check_adapt_supported,
+    draws_randoms,
     make_adapt_fn,
     make_schedule,
 )
@@ -397,7 +398,7 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         dm_fn = demosaic.malvar2004
     cfa = bayer.mask_like(x0, (h, w))
     adapt = make_adapt_fn(prior, config.adapt) if config.adapt is not None else None
-    if adapt is not None and prior.adapt_noise_std > 0 and generator is None:
+    if adapt is not None and draws_randoms(prior, config.adapt) and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     sigmas = torch.as_tensor(sigmas_np, device=dev)  # one copy; sigmas[k] is a view
     relax = torch.as_tensor(relax_np, device=dev) if relax_np is not None else None
@@ -475,7 +476,7 @@ class SolveState:
         adapting = config.adapt is not None and self.net is not None
         self.opt = carried_adam(self.net, config.adapt, opt_state) if adapting else None
         self.dm = DmState(dm_spec, dm_variables, dm_opt_state, device) if dm_spec else None
-        if generator is None and adapting and prior.adapt_noise_std > 0:
+        if generator is None and adapting and draws_randoms(prior, config.adapt):
             generator = torch.Generator(device=device).manual_seed(0)
         self.generator = generator
 
@@ -659,7 +660,7 @@ def two_stage_admm_batched(
         check_inputs(y[t], phi)
     adapting = config.adapt is not None and prior is not None
     if adapting or dm_spec is not None:
-        if adapting and generator is None and prior.adapt_noise_std > 0:
+        if adapting and generator is None and draws_randoms(prior, config.adapt):
             generator = torch.Generator(device=device).manual_seed(0)
         runs = [two_stage_admm(y[t], phi, config, prior, params,
                                None if x0 is None else x0[t],

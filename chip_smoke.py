@@ -23,7 +23,12 @@ small size (``drivers_parity``: tiled, sequence, batched, and ``gap_deep``,
 Menon 2007 and the gray solver), a 2048x2048x8 scene cut into 512 tiles
 under the bf16 FastDVDnet row with its adaptation shared over the tiles
 (``tiled``), and the FFDNet flagship over two measurements with a carried
-Adam state (``sequence``).
+Adam state (``sequence``). Then the user's entry points: the pipelines'
+``run_reconstruction`` and the ground-truth-free selections held against the
+CPU plain path at 64x64x8 (``pipeline_parity``), and the command-line chain
+``synth`` -> ``warmstart`` -> ``reconstruct`` (FastDVDnet bf16, with and
+without ``--ckpt auto --auto-demosaic``) -> ``eval`` -> ``serve`` at
+512x512x8 over two measurements, run in this process (``cli``).
 Each phase prints one JSON line; any failure exits nonzero. The last line is
 ``{"ok": true, "device": {...}}``. It exits 1 without printing a result when
 no CUDA device is present, and fails when the package is not beside it.
@@ -44,7 +49,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "k1", "k2", "k3", "slice_parity", "flagship",
           "fastdvd_parity", "fastdvd", "ddnet_parity", "ddnet", "drivers_parity", "tiled",
-          "sequence", "kernels")
+          "sequence", "pipeline_parity", "cli", "kernels")
 
 #: NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth, non-tensor fp32 rate and
 #: dense bf16 rate of the tensor cores
@@ -123,6 +128,38 @@ SEQUENCE_LAUNCHES = {"x_update": 2 * 40 + 2 * 25, "tv_chambolle": 2 * 40, "convp
 #: card-vs-CPU parity of the drivers: float32, bar on per-frame PSNR (dB) and
 #: on max |dx|, the same select_best pick on both sides
 DRIVERS_PARITY_BAR = (0.05, 1e-3)
+
+#: card-vs-CPU parity of ``pipelines.run_reconstruction`` at 64x64x8 over 2
+#: measurements (the FFDNet flagship schedule, adaptation on, weights carried):
+#: bar on per-frame PSNR (dB), on max |dx_bayer| and on the carried weights'
+#: gap (in units of the adaptation lr)
+PIPELINE_PARITY_BAR = (1e-5, 1e-5, 0.05)
+#: its runs, each with the GAP-TV warm start inline: per measurement 40 + 25
+#: x-updates and 40 TV proxes; tiled (4 windows of 48), one x-update launch
+#: per step covers all tiles
+PIPELINE_PARITY_RUNS = {"reuse_model": {}, "tiled": dict(tile=32, tile_overlap=8)}
+PIPELINE_PARITY_LAUNCHES = {"x_update": 2 * 65, "tv_chambolle": 2 * 40, "convpair": 0}
+
+#: the CLI chain at 512x512x8 over 2 measurements (``synth --n-meas 2``),
+#: FastDVDnet in bf16 on the Bosphorus rows, every row guarded (held-out
+#: select_best: 40 masked GAP-TV x-updates and TV proxes per measurement).
+#: Per subcommand: warmstart 2 x 40 GAP-TV steps; reconstruct from the warm
+#: start file, 36 ADMM + 40 masked GAP-TV x-updates a measurement and 8 conv
+#: pairs per no-grad denoiser call (288 a measurement); with --ckpt auto and
+#: --auto-demosaic first 2 + 2 fixed-weight 36-iteration probe solves of the
+#: first measurement (guard and adaptation stripped); serve, 2 files of 2
+#: measurements, each with its GAP-TV warm start inline
+CLI_N_MEAS = 2
+CLI_SIZE = 512
+CLI_LAUNCHES = {
+    "synth": {"x_update": 0, "tv_chambolle": 0, "convpair": 0},
+    "warmstart": {"x_update": 2 * 40, "tv_chambolle": 2 * 40, "convpair": 0},
+    "reconstruct": {"x_update": 2 * 76, "tv_chambolle": 2 * 40, "convpair": 2 * 288},
+    "reconstruct_auto": {"x_update": 4 * 36 + 2 * 76, "tv_chambolle": 2 * 40,
+                         "convpair": 4 * 288 + 2 * 288},
+    "eval": {"x_update": 0, "tv_chambolle": 0, "convpair": 0},
+    "serve": {"x_update": 4 * 116, "tv_chambolle": 4 * 80, "convpair": 4 * 288},
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -327,7 +364,7 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    needed = {"k1", "k2", "k3", "flagship", "fastdvd", "ddnet", "tiled", "sequence"}
+    needed = {"k1", "k2", "k3", "flagship", "fastdvd", "ddnet", "tiled", "sequence", "cli"}
     if "kernels" in phases and not needed <= phases:
         ap.error(f"the kernels phase needs the {', '.join(sorted(needed))} phases")
     from adaptivepnp_sci_torch import (
@@ -1239,6 +1276,171 @@ def main(argv: list[str]) -> int:
              adam_steps=int(res.opt_state["state"][0]["step"]), peak_mem_bytes=peak,
              launches=counts, **card)
 
+    # ----------------------------------------------------- pipeline_parity
+    if "pipeline_parity" in phases:
+        from adaptivepnp_sci_torch.data.mat_io import SceneData
+        from adaptivepnp_sci_torch.pipelines import (
+            holdout_cv_residuals,
+            probe_demosaic_residuals,
+            run_reconstruction,
+            select_demosaicker,
+            select_prior_variables,
+        )
+
+        sc = make_scene(b=8, h=64, w=64, seed=42, n_meas=2)
+        scene = SceneData("Bosphorus", np.transpose(sc.meas, (2, 0, 1)).astype(np.float32),
+                          sc.mask, sc.orig_bayer)
+        ffd_params = ffdnet_from_flax(flax_style_ffdnet_params(16, 4, seed=0))
+        ffd = ffdnet_prior(FFDNet(nc=16, nb=4))
+        lr = 2e-6
+        cfg = ADMMConfig(sigma=SIGMA, iters=ITERS, adapt=AdaptConfig(
+            lr=lr, update_per_iter=2, interval_iter=15, initial_iter=1))
+        db_bar, dx_bar, dw_bar = PIPELINE_PARITY_BAR
+        for name, kw in PIPELINE_PARITY_RUNS.items():
+            t0 = time.perf_counter()
+            cpu = run_reconstruction(scene, ffd, ffd_params, config=cfg, device="cpu", **kw)
+            cpu_s = time.perf_counter() - t0
+            cuda_kernels.reset_launches()
+            gpu = run_reconstruction(scene, ffd, ffd_params, config=cfg, device="cuda", **kw)
+            torch.cuda.synchronize()
+            counts = dict(cuda_kernels.launches)
+            require(counts == PIPELINE_PARITY_LAUNCHES, f"pipeline_parity {name}: launches {counts}")
+            require(bool(np.isfinite(gpu.x_bayer).all()), f"pipeline_parity {name}: non-finite")
+            dpsnr = float(np.abs(gpu.psnr - cpu.psnr).max())
+            dx = float(np.abs(gpu.x_bayer - cpu.x_bayer).max())
+            dw = max(float((gpu.variables[k].cpu() - cpu.variables[k]).abs().max())
+                     for k in cpu.variables) / lr
+            moved = max(float((cpu.variables[k] - ffd_params[k]).abs().max())
+                        for k in ffd_params) / lr
+            emit("pipeline_parity", case=name, shape=[2, 8, 64, 64], dtype="float32",
+                 max_dpsnr_db=dpsnr, max_abs_dx=dx, carried_weights_gap_lr=dw,
+                 carried_weights_moved_lr=moved,
+                 bar=f"{db_bar} dB, {dx_bar}, weights within {dw_bar} lr",
+                 psnr_cuda=float(gpu.psnr.mean()), psnr_cpu=float(cpu.psnr.mean()),
+                 cpu_seconds=cpu_s, launches=counts)
+            require(dpsnr <= db_bar and dx <= dx_bar and dw <= dw_bar and moved > 0,
+                    f"pipeline_parity {name}: dPSNR {dpsnr} dB, max |dx| {dx}, weights {dw} lr")
+        # the ground-truth-free choices: the same residual ranking on both sides
+        dd_params = ddnet_from_flax(load_variables_npz(str(ROOT / "weights" / "ddnet.npz")))
+        natural = fastdvdnet_from_flax(load_variables_npz(str(ROOT / "weights" / "fastdvd.npz")))
+        smooth = fastdvdnet_from_flax(
+            load_variables_npz(str(ROOT / "weights" / "fastdvd_smooth.npz")))
+        ffd_short = ADMMConfig(sigma=(25 / 255, 12 / 255), iters=(6, 4))
+        fdvd_short = ADMMConfig(sigma=FASTDVD_SIGMA, iters=(6, 4), denoiser="fastdvd")
+        fdvd32 = fastdvd_prior(FastDVDnet())
+        resids = {}
+        for d in ("cpu", "cuda"):
+            x0 = gap_tv(scene.meas[0], scene.mask, GapTVConfig(iters=40), device=d).x_bayer
+            resids[d] = {
+                "demosaicker": probe_demosaic_residuals(
+                    scene.meas[0], scene.mask, x0, ffd, ffd_params, DDnet(), dd_params,
+                    ffd_short, ffd_short, device=d),
+                "prior_variables": holdout_cv_residuals(
+                    scene.meas[0], scene.mask, x0,
+                    [dict(config=fdvd_short, prior=fdvd32, variables=v)
+                     for v in (natural, smooth)], device=d)}
+        picks = {d: {"demosaicker": "malvar" if r["demosaicker"][0] <= r["demosaicker"][1]
+                     else "ddnet",
+                     "prior_variables": ["natural", "smooth"][
+                         int(np.argmin(r["prior_variables"]))]}
+                 for d, r in resids.items()}
+        picks["cuda_select"] = {
+            "demosaicker": select_demosaicker(scene, ffd, ffd_params, DDnet(), dd_params,
+                                              config_malvar=ffd_short, config_ddnet=ffd_short,
+                                              device="cuda"),
+            "prior_variables": select_prior_variables(
+                scene, fdvd32, {"natural": natural, "smooth": smooth}, config=fdvd_short,
+                device="cuda")}
+        emit("pipeline_parity", case="selection", residuals=resids, picks=picks)
+        require(picks["cuda"] == picks["cpu"] == picks["cuda_select"],
+                f"pipeline_parity: picks {picks}")
+
+    # ----------------------------------------------------------------- cli
+    if "cli" in phases:
+        import contextlib
+        import io
+        import re
+        import shutil
+        import tempfile
+
+        import scipy.io as sio
+
+        from adaptivepnp_sci_torch import cli as port_cli
+
+        def run_cli(step: str, argv: list[str]) -> tuple[str, float]:
+            """One subcommand in this process, its launches counted from 0."""
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                port_cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(cuda_kernels.launches)
+            require(counts == CLI_LAUNCHES[step], f"cli {step}: launches {counts}")
+            for k, v in counts.items():
+                cli_counts[k] += v
+            for shape, v in cuda_kernels.convpair_launches.items():
+                cli_shapes[shape] = cli_shapes.get(shape, 0) + v
+            return buf.getvalue(), secs
+
+        cli_counts = {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
+        cli_shapes: dict[tuple[int, int, int], int] = {}
+        with tempfile.TemporaryDirectory() as d:
+            s, w, r, r0 = (str(Path(d) / f) for f in ("s.mat", "w.mat", "r.mat", "r0.mat"))
+            watch, out_dir = Path(d) / "in", Path(d) / "out"
+            steps: dict[str, dict] = {}
+            _, t = run_cli("synth", ["synth", "--out", s, "--size", str(CLI_SIZE), "--frames", "8",
+                                     "--n-meas", str(CLI_N_MEAS), "--seed", "42"])
+            steps["synth"] = {"seconds": t}
+            text, t = run_cli("warmstart", ["warmstart", "--data", s, "--out", w])
+            steps["warmstart"] = {"seconds": t, "out": text.strip()}
+            fdvd = ["--data", s, "--warm", w, "--denoiser", "fastdvd", "--bf16",
+                    "--name", "Bosphorus"]
+            text, t = run_cli("reconstruct", ["reconstruct", *fdvd, "--out", r0])
+            steps["reconstruct"] = {"seconds": t, "out": text.strip()}
+            text, t = run_cli("reconstruct_auto", ["reconstruct", *fdvd, "--ckpt", "auto",
+                                                   "--auto-demosaic", "--out", r])
+            steps["reconstruct_auto"] = {"seconds": t, "out": text.strip()}
+            eval_text, t = run_cli("eval", ["eval", r, "--data", s])
+            steps["eval"] = {"seconds": t}
+            watch.mkdir()
+            for f in ("a.mat", "b.mat"):
+                shutil.copy(s, watch / f)
+            serve_text, t = run_cli("serve", [
+                "serve", "--watch", str(watch), "--out", str(out_dir), "--denoiser", "fastdvd",
+                "--bf16", "--scene", "Bosphorus", "--once", "--carry-weights", "--poll", "0.1"])
+            steps["serve"] = {"seconds": t, "out": serve_text.strip()}
+            for f in (s, w, r, r0, out_dir / "a.mat", out_dir / "b.mat"):
+                require(Path(f).exists(), f"cli: {f} was not written")
+            # serve reports a bad file and goes on: hold each file's result here
+            require("FAILED" not in serve_text, f"cli serve: {serve_text}")
+            psnrs = {}
+            for label, f in (("reconstruct", r0), ("reconstruct_auto", r),
+                             ("serve_a", out_dir / "a.mat"), ("serve_b", out_dir / "b.mat")):
+                res = sio.loadmat(str(f))
+                x, p = res["v_recon_bayer"], res["psnr"]
+                require(x.shape == (CLI_SIZE, CLI_SIZE, 8 * CLI_N_MEAS)
+                        and bool(np.isfinite(x).all()), f"cli: {f} holds {x.shape}")
+                require(p.shape == (CLI_N_MEAS, 8) and bool(np.all(np.isfinite(p) & (p > 0))),
+                        f"cli: {f} PSNR {p}")
+                psnrs[label] = float(p.mean())
+            stored = re.search(r"mean:\s+PSNR\s+(\S+) dB", eval_text)
+            recomputed = re.search(r"recomputed vs ground truth: PSNR\s+(\S+) dB", eval_text)
+            require(stored is not None and recomputed is not None, f"cli eval: {eval_text}")
+            gap = abs(float(stored.group(1)) - float(recomputed.group(1)))
+            require(gap <= 0.5 and "WARNING" not in eval_text, f"cli eval: {eval_text}")
+        per_meas = {k: v["seconds"] / (2 * CLI_N_MEAS if k == "serve" else CLI_N_MEAS)
+                    for k, v in steps.items()}
+        picks = dict(re.findall(r"(auto-ckpt|auto-demosaic): (\S+)",
+                                steps["reconstruct_auto"]["out"]))
+        report["launches_cli"] = cli_counts
+        report["launches_convpair_cli"] = cli_shapes
+        emit("cli", shape=[CLI_N_MEAS, 8, CLI_SIZE, CLI_SIZE], seconds_per_measurement=per_meas,
+             steps=steps, picks=picks, psnr_db=psnrs, eval_stored_vs_recomputed_db=gap,
+             launches=cli_counts, launches_by_step=CLI_LAUNCHES, **card)
+
     # ------------------------------------------------------------- kernels
     if "kernels" in phases:
         # launches on the main paths: the flagship's for its two kernels, the
@@ -1248,7 +1450,9 @@ def main(argv: list[str]) -> int:
         launches_ddnet = dict(report["launches_ddnet"])
         launches_tiled = dict(report["launches_tiled"])
         launches_sequence = dict(report["launches_sequence"])
+        launches_cli = dict(report["launches_cli"])
         for name, shape in CONVPAIR_MAIN_SHAPES.items():
+            launches_cli[f"convpair_{name}"] = report["launches_convpair_cli"].get(shape, 0)
             launches[f"convpair_{name}"] = report["launches_convpair"][shape]
             launches_ddnet[f"convpair_{name}"] = report["launches_convpair_ddnet"][shape]
             launches_tiled[f"convpair_{name}"] = report["launches_convpair_tiled"][shape]
@@ -1270,13 +1474,15 @@ def main(argv: list[str]) -> int:
                          "launches_ddnet_row": launches_ddnet[name],
                          "launches_tiled": launches_tiled[name],
                          "launches_sequence": launches_sequence[name],
+                         "launches_cli": launches_cli[name],
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                          "previous_ms": r.get("previous_ms"), "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                          "library_ms": r.get("library_ms"),
                          **{k: r[k] for k in extra.get(name, ())}})
         require(all(r["launches"] > 0 and r["launches_ddnet_row"] > 0 and r["launches_tiled"] > 0
-                    for r in rows), f"a kernel was never launched: {rows}")
+                    and r["launches_cli"] > 0 for r in rows),
+                f"a kernel was never launched: {rows}")
         require(all(r["launches_sequence"] > 0 for r in rows[:2]),
                 f"the sequence path missed a kernel: {rows}")
         print(json.dumps({"kernels": rows}), flush=True)

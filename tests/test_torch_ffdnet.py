@@ -217,7 +217,7 @@ def test_schedule_matches_jax():
 
 def test_unported_adaptation_options_raise():
     prior = tffdnet_prior(TFFDNet(nc=8, nb=4))
-    with pytest.raises(NotImplementedError):
-        tonline.make_adapt_fn(prior, tonline.AdaptConfig(crop=8))
+    # the adaptation crop is ported (its parity: tests/test_torch_pipelines.py)
+    assert callable(tonline.make_adapt_fn(prior, tonline.AdaptConfig(crop=8)))
     with pytest.raises(NotImplementedError):
         tonline.make_adapt_fn(prior._replace(adapt_mask=("s", 0.1)), tonline.AdaptConfig())

@@ -2,6 +2,7 @@
 CPU tensors its kernel wrappers run the plain versions without launching."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -15,6 +16,7 @@ _RUN = r"""
 import sys
 import numpy as np
 import torch
+torch.set_num_threads(1)
 from adaptivepnp_sci_torch import (ADMMConfig, AdaptConfig, DDnet, FastDVDnet, FFDNet,
                                    GapTVConfig, admm_config_for, ddnet_demosaic, fastdvd_prior,
                                    ffdnet_prior, make_dm_spec, reconstruct_single_dispatch)
@@ -75,6 +77,22 @@ assert gd.x_rgb.shape == (8, 16, 16, 3)
 assert menon2007(torch.from_numpy(sc.orig_bayer)).shape == (8, 16, 16, 3)
 gr = gap_denoise_gray(sc.meas, sc.mask, GrayConfig(iters=(3,)), device="cpu")
 assert bool(gr.x.isfinite().all())
+# the user's entry points: scene I/O, the pipelines and the CLI, in process
+import contextlib, io, os, tempfile
+from adaptivepnp_sci_torch import cli, pipelines
+from adaptivepnp_sci_torch.data import mat_io
+with tempfile.TemporaryDirectory() as d:
+    scene, res = os.path.join(d, "s.mat"), os.path.join(d, "r.mat")
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        cli.main(["synth", "--out", scene, "--size", "16", "--frames", "4", "--n-meas", "2"])
+        cli.main(["reconstruct", "--data", scene, "--random-init", "--out", res,
+                  "--device", "cpu"])
+    assert "s/measurement" in out.getvalue(), out.getvalue()
+    sd = mat_io.load_cacti_mat(scene, "Beauty")
+    assert sd.meas.shape == (2, 16, 16) and sd.orig_bayer.shape == (2, 4, 16, 16)
+    ws = pipelines.run_warm_start(sd, iters=3, device="cpu")
+    assert ws.x_bayer.shape == (2, 4, 16, 16)
+    assert mat_io.load_warm_start.__module__ == "adaptivepnp_sci_torch.data.mat_io"
 try:
     ab_convpair.main(32, 16, 1)
 except RuntimeError as err:
@@ -90,8 +108,10 @@ print("FOREIGN", bad)
 
 
 def test_port_runs_without_importing_jax():
+    # one thread each: the run shares the machine with the other test workers
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _RUN], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr
     assert "FOREIGN []" in out.stdout, out.stdout
 
