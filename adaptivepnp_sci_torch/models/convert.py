@@ -28,6 +28,7 @@ converters (:func:`adam_state_from_optax`, :func:`adam_state_to_optax`).
 
 from __future__ import annotations
 
+import pickle
 from typing import Any, Callable, Mapping
 
 import numpy as np
@@ -77,8 +78,14 @@ def ffdnet_to_flax(state_dict: Mapping[str, Tensor]) -> dict:
 def load_torch_state_dict(path: str) -> dict[str, Tensor]:
     """Read a reference ``.pth`` checkpoint into a flat name -> tensor dict on
     the CPU: a ``state_dict`` wrapper (DDnet's checkpoints) is opened and a
-    DataParallel ``module.`` prefix dropped."""
-    sd = torch.load(path, map_location="cpu", weights_only=False)
+    DataParallel ``module.`` prefix dropped. The file is read with
+    ``weights_only=True``: tensors in plain containers, never arbitrary
+    pickled objects, which are refused."""
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        raise ValueError(f"{path}: holds more than tensors in plain containers and is "
+                         "not unpickled; save its state dict alone") from e
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
     return {k.removeprefix("module."): torch.as_tensor(v) for k, v in sd.items()}

@@ -67,8 +67,9 @@ def load_adapted_state(path: str, like_variables: Mapping[str, torch.Tensor] | N
     """Read what :func:`save_adapted_state` wrote: ``(variables,
     opt_state)``, on the CPU, with ``weights_only=True`` (tensors and plain
     containers only). ``like_variables`` (optional) must have the same
-    names."""
-    del like_opt_state  # the Adam state dict carries its own structure
+    names. ``like_opt_state`` is accepted for the JAX package's signature
+    and not read: the Adam state dict carries its own structure."""
+    del like_opt_state
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     variables = ckpt["variables"]
     if like_variables is not None and set(like_variables) != set(variables):
@@ -289,7 +290,6 @@ def run_reconstruction(
     tile_overlap: int = 0,
     tile_chunk: int | None = None,
     device: torch.device | str = "cuda",
-    generator: torch.Generator | None = None,
 ) -> ReconstructionOutput:
     """Two-stage online-adaptive reconstruction of every measurement of
     ``scene``, with the scene's table row unless ``config`` is given.
@@ -311,14 +311,14 @@ def run_reconstruction(
     before the solve (:func:`make_dm_adapt_fn`). ``dm_fresh_opt`` builds a
     new Adam for every step.
 
-    ``generator`` (None: one seeded with 0) feeds the adaptation's random
-    draws through all measurements in turn; the JAX package instead passes
-    ``PRNGKey(t)`` to measurement ``t``.
+    The adaptation's random draws (input noise, crop offsets) come from one
+    ``torch.Generator`` on ``device``, seeded with 0 and carried through all
+    measurements in turn; the JAX package instead passes ``PRNGKey(t)`` to
+    measurement ``t``.
     """
     if config is None:
         config = admm_config_for(scene.name, denoiser, deep_demosaicking, update)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+    generator = torch.Generator(device=device).manual_seed(0)
     initial_variables = variables
     opt_state = None
 

@@ -134,6 +134,8 @@ DRIVERS_PARITY_BAR = (0.05, 1e-3)
 #: bar on per-frame PSNR (dB), on max |dx_bayer| and on the carried weights'
 #: gap (in units of the adaptation lr)
 PIPELINE_PARITY_BAR = (1e-5, 1e-5, 0.05)
+#: the selections' held-out residuals, card vs CPU: relative bar
+PIPELINE_RESID_RTOL = 1e-4
 #: its runs, each with the GAP-TV warm start inline: per measurement 40 + 25
 #: x-updates and 40 TV proxes; tiled (4 windows of 48), one x-update launch
 #: per step covers all tiles
@@ -148,7 +150,10 @@ PIPELINE_PARITY_LAUNCHES = {"x_update": 2 * 65, "tv_chambolle": 2 * 40, "convpai
 #: pairs per no-grad denoiser call (288 a measurement); with --ckpt auto and
 #: --auto-demosaic first 2 + 2 fixed-weight 36-iteration probe solves of the
 #: first measurement (guard and adaptation stripped); serve, 2 files of 2
-#: measurements, each with its GAP-TV warm start inline
+#: measurements, each with its GAP-TV warm start inline. Then one leaves
+#: measurement (``synth --style leaves``), where the guard is expected to pick
+#: an ADMM iterate: its warm start (40 GAP-TV steps) and the deep-demosaicking
+#: row from that file (36 ADMM + 40 masked GAP-TV x-updates, 288 conv pairs)
 CLI_N_MEAS = 2
 CLI_SIZE = 512
 CLI_LAUNCHES = {
@@ -159,6 +164,9 @@ CLI_LAUNCHES = {
                          "convpair": 4 * 288 + 2 * 288},
     "eval": {"x_update": 0, "tv_chambolle": 0, "convpair": 0},
     "serve": {"x_update": 4 * 116, "tv_chambolle": 4 * 80, "convpair": 4 * 288},
+    "synth_leaves": {"x_update": 0, "tv_chambolle": 0, "convpair": 0},
+    "warmstart_leaves": {"x_update": 40, "tv_chambolle": 40, "convpair": 0},
+    "reconstruct_leaves": {"x_update": 76, "tv_chambolle": 40, "convpair": 288},
 }
 
 
@@ -1351,7 +1359,14 @@ def main(argv: list[str]) -> int:
             "prior_variables": select_prior_variables(
                 scene, fdvd32, {"natural": natural, "smooth": smooth}, config=fdvd_short,
                 device="cuda")}
-        emit("pipeline_parity", case="selection", residuals=resids, picks=picks)
+        rel = {k: float(np.max(np.abs(np.subtract(resids["cuda"][k], resids["cpu"][k]))
+                              / np.abs(resids["cpu"][k])))
+               for k in resids["cpu"]}
+        emit("pipeline_parity", case="selection", residuals=resids, max_rel_dresid=rel,
+             bar=f"residuals within {PIPELINE_RESID_RTOL} relative, the same picks",
+             picks=picks)
+        require(max(rel.values()) <= PIPELINE_RESID_RTOL,
+                f"pipeline_parity: residuals card vs CPU {rel}")
         require(picks["cuda"] == picks["cpu"] == picks["cuda_select"],
                 f"pipeline_parity: picks {picks}")
 
@@ -1366,6 +1381,8 @@ def main(argv: list[str]) -> int:
         import scipy.io as sio
 
         from adaptivepnp_sci_torch import cli as port_cli
+        from adaptivepnp_sci_torch.data.mat_io import load_cacti_mat, load_warm_start
+        from adaptivepnp_sci_torch.utils.image import calculate_psnr
 
         def run_cli(step: str, argv: list[str]) -> tuple[str, float]:
             """One subcommand in this process, its launches counted from 0."""
@@ -1426,19 +1443,47 @@ def main(argv: list[str]) -> int:
                 require(p.shape == (CLI_N_MEAS, 8) and bool(np.all(np.isfinite(p) & (p > 0))),
                         f"cli: {f} PSNR {p}")
                 psnrs[label] = float(p.mean())
+            # the leaves scene: the guard picks an ADMM iterate, so the stored
+            # result is the solve's own and must beat its warm start
+            ls, lw, lres = (str(Path(d) / f) for f in ("l.mat", "lw.mat", "lr.mat"))
+            _, t = run_cli("synth_leaves", ["synth", "--out", ls, "--size", str(CLI_SIZE),
+                                            "--frames", "8", "--n-meas", "1", "--seed", "42",
+                                            "--style", "leaves"])
+            steps["synth_leaves"] = {"seconds": t}
+            text, t = run_cli("warmstart_leaves", ["warmstart", "--data", ls, "--out", lw])
+            steps["warmstart_leaves"] = {"seconds": t, "out": text.strip()}
+            text, t = run_cli("reconstruct_leaves", [
+                "reconstruct", "--data", ls, "--warm", lw, "--denoiser", "fastdvd", "--bf16",
+                "--deep-demosaicking", "--name", "Bosphorus", "--out", lres])
+            steps["reconstruct_leaves"] = {"seconds": t, "out": text.strip()}
+            truth = load_cacti_mat(ls, name="leaves").orig_bayer[0]
+            x_w = load_warm_start(lw, 8)[0]
+            x_r = np.transpose(sio.loadmat(lres)["v_recon_bayer"], (2, 0, 1))
+            require(x_r.shape == x_w.shape == truth.shape and bool(np.isfinite(x_r).all()),
+                    f"cli leaves: {x_r.shape}")
+            leaves = {"warm_start_psnr_db": float(np.mean([calculate_psnr(
+                          x_w[b] * 255.0, truth[b] * 255.0) for b in range(8)])),
+                      "psnr_db": float(np.mean([calculate_psnr(
+                          x_r[b] * 255.0, truth[b] * 255.0) for b in range(8)])),
+                      "max_abs_dx_from_warm_start": float(np.abs(x_r - x_w).max())}
+            require(leaves["max_abs_dx_from_warm_start"] > 0
+                    and leaves["psnr_db"] > leaves["warm_start_psnr_db"],
+                    f"cli leaves: the result is the warm start or below it {leaves}")
             stored = re.search(r"mean:\s+PSNR\s+(\S+) dB", eval_text)
             recomputed = re.search(r"recomputed vs ground truth: PSNR\s+(\S+) dB", eval_text)
             require(stored is not None and recomputed is not None, f"cli eval: {eval_text}")
             gap = abs(float(stored.group(1)) - float(recomputed.group(1)))
             require(gap <= 0.5 and "WARNING" not in eval_text, f"cli eval: {eval_text}")
-        per_meas = {k: v["seconds"] / (2 * CLI_N_MEAS if k == "serve" else CLI_N_MEAS)
+        per_meas = {k: v["seconds"] / (2 * CLI_N_MEAS if k == "serve" else
+                                       1 if k.endswith("_leaves") else CLI_N_MEAS)
                     for k, v in steps.items()}
         picks = dict(re.findall(r"(auto-ckpt|auto-demosaic): (\S+)",
                                 steps["reconstruct_auto"]["out"]))
         report["launches_cli"] = cli_counts
         report["launches_convpair_cli"] = cli_shapes
         emit("cli", shape=[CLI_N_MEAS, 8, CLI_SIZE, CLI_SIZE], seconds_per_measurement=per_meas,
-             steps=steps, picks=picks, psnr_db=psnrs, eval_stored_vs_recomputed_db=gap,
+             steps=steps, picks=picks, psnr_db=psnrs, leaves=leaves,
+             eval_stored_vs_recomputed_db=gap,
              launches=cli_counts, launches_by_step=CLI_LAUNCHES, **card)
 
     # ------------------------------------------------------------- kernels

@@ -6,6 +6,7 @@ host metrics of ``utils.image``, the ``.pth`` loaders and the Flax parameter
 paths behind ``--trainable-filter``.
 """
 
+import argparse
 import sys
 
 import jax
@@ -219,6 +220,11 @@ def test_pth_loaders_match_jax(tmp_path):
     extra = dict(ddnet, **{"temp1.inc.convblock.0.weight": torch.zeros(1)})
     torch.save({"state_dict": extra}, str(tmp_path / "dd2.pth"))
     assert tconvert.load_ddnet(str(tmp_path / "dd2.pth")).keys() == ddnet.keys()
+    # a checkpoint that pickles more than tensors is refused, not unpickled
+    torch.save({"state_dict": ffd, "args": argparse.Namespace(lr=1e-4)},
+               str(tmp_path / "obj.pth"))
+    with pytest.raises(ValueError, match="state dict alone"):
+        tconvert.load_ffdnet(str(tmp_path / "obj.pth"))
 
 
 @pytest.mark.parametrize("filters", [("temp2",), ("inc", "bn1"), ("cvblock/conv1",),
