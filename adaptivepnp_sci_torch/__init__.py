@@ -11,7 +11,8 @@ fresh or a carried Adam, and of DDnet), ``configs.scenes`` (the scene
 tables), ``ops`` (with Menon 2007 demosaicking and the patch ops),
 ``data`` (synthetic scenes and the ``.mat`` scene and result files),
 ``utils.image`` (host PSNR/SSIM), ``pipelines`` (the drivers over a
-multi-measurement scene) and ``cli`` (``python -m adaptivepnp_sci_torch.cli``).
+multi-measurement scene), ``train`` (offline training of the three denoisers,
+:class:`Trainer`) and ``cli`` (``python -m adaptivepnp_sci_torch.cli``).
 Plain tensor code is PyTorch; the repository's three Pallas kernels (the
 x-update and the TV prox of the flagship path, the fused conv pair of the
 FastDVDnet prior's bf16 mode) are hand-written CUDA kernels for Hopper
@@ -50,6 +51,7 @@ from adaptivepnp_sci_torch.solvers.two_stage_admm import (
     two_stage_admm_sequence,
     two_stage_admm_tiled,
 )
+from adaptivepnp_sci_torch.train import Trainer, TrainerConfig
 
 __all__ = [
     "ADMMConfig",
@@ -62,6 +64,8 @@ __all__ = [
     "GapTVConfig",
     "GrayConfig",
     "Prior",
+    "Trainer",
+    "TrainerConfig",
     "admm_config_for",
     "ddnet_demosaic",
     "fastdvd_prior",

@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 from torch import Tensor
 
-from adaptivepnp_sci_torch.ops import bayer, physics
+from adaptivepnp_sci_torch.ops import bayer, corruption, physics
 
 if TYPE_CHECKING:
     from adaptivepnp_sci_torch.solvers.priors import Prior
@@ -155,15 +155,30 @@ def measurement_loss_fn(
 
 
 def check_adapt_supported(prior: "Prior", adapt_cfg: AdaptConfig) -> None:
-    """Raise ``NotImplementedError`` for an adaptation option not ported yet."""
-    if prior.adapt_mask is not None:
-        raise NotImplementedError("Prior.adapt_mask is not ported yet")
+    """Raise ``ValueError`` for an adaptation input corruption
+    (``Prior.adapt_mask``) of an unknown mode, as the JAX package does."""
+    if prior.adapt_mask is not None and prior.adapt_mask[0] not in ("s", "t", "b"):
+        raise ValueError(f"unknown adapt_mask mode {prior.adapt_mask[0]!r}")
 
 
 def draws_randoms(prior: "Prior", adapt_cfg: AdaptConfig | None) -> bool:
-    """Whether the adaptation draws from a generator: input noise or crop
-    offsets."""
-    return adapt_cfg is not None and (prior.adapt_noise_std > 0 or adapt_cfg.crop is not None)
+    """Whether the adaptation draws from a generator: input noise, an input
+    corruption mask (the spatial and block modes) or crop offsets."""
+    masks = prior.adapt_mask is not None and prior.adapt_mask[0] in ("s", "b")
+    return adapt_cfg is not None and (prior.adapt_noise_std > 0 or masks
+                                      or adapt_cfg.crop is not None)
+
+
+def mask_input(generator: torch.Generator | None, rgb_in: Tensor,
+               adapt_mask: tuple[str, float]) -> Tensor:
+    """The adaptation input with ``Prior.adapt_mask``'s corruption: the frame
+    cube ``(B, H, W, 3)`` plays the window axis of
+    :mod:`adaptivepnp_sci_torch.ops.corruption`; on an item axis
+    ``(N, B, H, W, 3)`` each item draws its own mask, in turn."""
+    mode, ratio = adapt_mask
+    if rgb_in.dim() == 5:
+        return torch.stack([mask_input(generator, r, adapt_mask) for r in rgb_in])
+    return corruption.mask_window(generator, rgb_in[None], mode, ratio)[0]
 
 
 def check_crop(crop: int, h: int, w: int) -> None:
@@ -228,7 +243,8 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
     With ``prior.adapt_noise_std > 0`` the trigger first adds gaussian noise
     of that standard deviation to its input, drawn from ``generator`` on the
     generator's device (so a CPU generator gives the same draw wherever the
-    solver runs). With ``adapt_cfg.crop`` it then draws each item's crop
+    solver runs). With ``prior.adapt_mask`` it then corrupts the input
+    (:func:`mask_input`), and with ``adapt_cfg.crop`` draws each item's crop
     window from ``generator`` (:func:`crop_offsets`)."""
     check_adapt_supported(prior, adapt_cfg)
     stages = resolve_stages(adapt_cfg)
@@ -247,6 +263,9 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
             noise = torch.randn(rgb_in.shape, generator=generator, dtype=rgb_in.dtype,
                                 device=generator.device)
             rgb_in = rgb_in + prior.adapt_noise_std * noise.to(rgb_in.device)
+        if prior.adapt_mask is not None:
+            # the reference's masked-input ablation (gen_masked_data)
+            rgb_in = mask_input(generator, rgb_in, prior.adapt_mask)
         rgb_in = rgb_in.detach()
         items = ([(rgb_in, y_p, phi_p, y_f, phi_f)] if rgb_in.dim() == 4 else
                  [(rgb_in[i], y_p[i], phi_p[i] if phi_f.dim() == 4 else phi_p, y_f[i],

@@ -6,17 +6,20 @@
       --denoiser fastdvd --bf16 --out results.mat
   python -m adaptivepnp_sci_torch.cli eval results.mat --data scene.mat
   python -m adaptivepnp_sci_torch.cli serve --watch in/ --out out/ --once
+  python -m adaptivepnp_sci_torch.cli train --network fastdvd --ckpt-dir ckpt/
+  python -m adaptivepnp_sci_torch.cli denoise --network fastdvd --ckpt ckpt/final.pt
 
-``warmstart``, ``reconstruct`` and ``serve`` run on ``--device`` (default
-``cuda``; ``--device cpu`` runs the plain PyTorch versions of the kernels on
-the CPU); there is no silent fallback from one to the other. ``synth`` and
-``eval`` run on the host. The flags are the JAX package's, with these
-differences: checkpoints are ``.pth`` (the reference's) or ``.npz`` (the
-``/``-keyed files of ``weights/``), never orbax directories;
-``--random-init`` draws PyTorch's default initialisation under a fixed
-seed, not the JAX package's ``PRNGKey`` Flax weights; ``synth`` makes the
-``smooth``, ``textured`` and ``leaves`` scenes, not the photograph styles;
-``denoise`` and ``train`` are not here.
+``warmstart``, ``reconstruct``, ``serve``, ``train`` and ``denoise`` run on
+``--device`` (default ``cuda``; ``--device cpu`` runs the plain PyTorch
+versions of the kernels on the CPU); there is no silent fallback from one to
+the other. ``synth`` and ``eval`` run on the host. The flags are the JAX
+package's, with these differences: checkpoints are ``.pth`` (the
+reference's), ``.npz`` (the ``/``-keyed files of ``weights/``) or ``.pt``
+(this package's trainer checkpoints; ``train`` writes ``{ckpt-dir}/final.pt``),
+never orbax directories; ``--random-init`` and ``train`` draw PyTorch's
+default initialisation under a fixed seed, not the JAX package's
+``PRNGKey`` Flax weights; ``synth`` makes the ``smooth``, ``textured`` and
+``leaves`` scenes, not the photograph styles.
 """
 
 from __future__ import annotations
@@ -45,8 +48,10 @@ def _seeded_init(build: Callable[[], Any], seed: int) -> dict:
 def _load_weights(path: str | None, pth_loader: Callable[[str], dict],
                   from_flax: Callable[[dict], dict], init_fn: Callable[[], dict],
                   defaults: tuple[str, ...] = (), random_init: bool = False) -> dict:
-    """A state dict from a reference ``.pth`` (``pth_loader``) or a
-    ``/``-keyed ``.npz`` of Flax variables (``from_flax``). Without a path,
+    """A state dict from a reference ``.pth`` (``pth_loader``), a ``/``-keyed
+    ``.npz`` of Flax variables (``from_flax``) or a trainer checkpoint
+    ``.pt`` (:func:`~adaptivepnp_sci_torch.train.trainer.load_checkpoint_variables`).
+    Without a path,
     the first default checkpoint that exists; ``init_fn()`` (untrained
     weights) only with ``random_init``: a random denoiser reconstructs
     garbage, so it is never a silent fallback. Orbax checkpoint directories
@@ -66,14 +71,21 @@ def _load_weights(path: str | None, pth_loader: Callable[[str], dict],
     if os.path.isdir(path):
         raise SystemExit(
             f"error: {path} is a directory (an orbax checkpoint of the JAX "
-            "package); this package reads .pth and /-keyed .npz checkpoints only")
+            "package); this package reads .pth, /-keyed .npz and .pt checkpoints only")
     if not os.path.exists(path):
         raise SystemExit(f"error: checkpoint {path} not found")
     if path.endswith(".pth"):
         return pth_loader(path)
     if path.endswith(".npz"):
         return from_flax(load_variables_npz(path))
-    raise SystemExit(f"error: {path}: unknown checkpoint format (expected .pth or .npz)")
+    if path.endswith(".pt"):
+        from adaptivepnp_sci_torch.train.trainer import load_checkpoint_variables
+
+        try:
+            return load_checkpoint_variables(path)
+        except ValueError as e:
+            raise SystemExit(f"error: {e}") from e
+    raise SystemExit(f"error: {path}: unknown checkpoint format (expected .pth, .npz or .pt)")
 
 
 def _build_denoiser(denoiser: str, ckpt: str | None, random_init: bool = False,
@@ -294,6 +306,149 @@ def _cmd_reconstruct(args) -> None:
         f"SSIM {out.ssim.mean():.4f}, "
         f"{np.mean(out.seconds_per_meas):.2f}s/measurement"
     )
+
+
+def _cmd_train(args) -> None:
+    """Offline denoiser training on synthetic clips (256 of ``--patch``
+    pixels) or the arrays of ``--data``; writes ``{ckpt-dir}/final.pt``."""
+    from adaptivepnp_sci_torch.train import Trainer, TrainerConfig
+    from adaptivepnp_sci_torch.train.datasets import (
+        batch_iterator,
+        load_array_dir,
+        synthetic_video_dataset,
+        temporal_chunks,
+    )
+    from adaptivepnp_sci_torch.train.tasks import ddnet_task, fastdvd_task, ffdnet_task
+
+    device = _check_device(args.device)
+    length = 1 if args.network == "ffdnet" else 5
+    if args.data:
+        clips = np.concatenate([temporal_chunks(v, length) for v in load_array_dir(args.data)])
+    else:
+        clips = synthetic_video_dataset(256, length=length, size=args.patch, seed=args.seed)
+    if args.network == "ffdnet":
+        clips = clips[:, 0]
+
+    # the published widths: FFDNet-color nc 96 / nb 12, FastDVDnet (32, 64, 128),
+    # DDnet's; PyTorch's default initialisation drawn under --seed
+    if args.network == "ffdnet":
+        from adaptivepnp_sci_torch.models.ffdnet import ffdnet_color as build
+
+        make_task = ffdnet_task
+    elif args.network == "fastdvd":
+        from adaptivepnp_sci_torch.models.fastdvdnet import FastDVDnet as build
+
+        make_task = fastdvd_task
+    else:
+        from adaptivepnp_sci_torch.models.ddnet import DDnet as build
+
+        make_task = ddnet_task
+    trainer = Trainer(
+        make_task(build()), _seeded_init(build, args.seed),
+        TrainerConfig(lr=args.lr, steps_per_epoch=max(len(clips) // args.batch, 1),
+                      ckpt_dir=args.ckpt_dir, seed=args.seed),
+        device=device)
+    if args.resume:
+        try:
+            trainer.restore(args.resume)
+        except ValueError as e:
+            raise SystemExit(f"error: {e}") from e
+    trainer.fit(batch_iterator(clips, args.batch, seed=args.seed), max_steps=args.steps)
+    final = os.path.join(args.ckpt_dir, "final.pt")
+    trainer.save(final)
+    print(f"trained {args.network} for {trainer.step} steps -> {final}")
+
+
+def _cmd_denoise(args) -> None:
+    """Standalone denoiser test (the reference's per-denoiser test scripts,
+    ``packages/ffdnet/test_ffdnet_ipol.py:559-692`` /
+    ``packages/fastdvdnet/test_fastdvdnet.py:51-147``): load clean data, add
+    gaussian noise at ``--sigma`` (drawn with NumPy from ``--seed``), denoise,
+    report PSNR. ``--network ddnet`` is the joint demosaick-and-denoise eval
+    (``packages/DDnet/joint_test_fastdvdnet.py:108-140``)."""
+    import torch
+
+    from adaptivepnp_sci_torch.models import convert
+    from adaptivepnp_sci_torch.ops import metrics
+    from adaptivepnp_sci_torch.solvers.priors import module_copy
+
+    device = _check_device(args.device)
+    rng = np.random.default_rng(args.seed)
+    if args.data:
+        clean = np.load(args.data).astype(np.float32)
+        if clean.max() > 2.0:
+            clean = clean / 255.0
+    else:
+        from adaptivepnp_sci_torch.train.datasets import synthetic_video_dataset
+
+        clean = synthetic_video_dataset(1, length=8, size=args.size, seed=args.seed)[0]
+    if args.gray:
+        if args.network != "ffdnet":
+            raise SystemExit("error: --gray is only supported with --network ffdnet")
+        # the reference's gray mode noises the grayscale image (BT.601 luma)
+        if clean.ndim == 4 and clean.shape[-1] == 3:
+            luma = np.array([0.299, 0.587, 0.114], np.float32)
+            clean = (clean @ luma)[..., None]
+    sigma = args.sigma / 255.0
+    noisy = (clean + rng.normal(0, sigma, clean.shape)).astype(np.float32)
+    if args.network != "ddnet":
+        # the FFDNet and FastDVDnet scripts clip the noisy input; the DDnet
+        # joint eval feeds it unclipped (joint_test_fastdvdnet.py:108)
+        noisy = np.clip(noisy, 0, 1)
+
+    x = torch.from_numpy(noisy).to(device)
+    sig = torch.tensor(sigma, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        if args.network == "ffdnet":
+            from adaptivepnp_sci_torch.models.ffdnet import ffdnet_color, ffdnet_gray
+
+            model = ffdnet_gray() if args.gray else ffdnet_color()
+            variables = _load_weights(args.ckpt, convert.load_ffdnet, convert.ffdnet_from_flax,
+                                      lambda: {})
+            out = module_copy(model, variables, device)(x, sig)
+        elif args.network == "ddnet":
+            import torch.nn.functional as F
+
+            from adaptivepnp_sci_torch.models.ddnet import DDnet
+            from adaptivepnp_sci_torch.ops import bayer
+            from adaptivepnp_sci_torch.solvers.priors import window_indices_mirror
+
+            variables = _load_weights(args.ckpt, convert.load_ddnet, convert.ddnet_from_flax,
+                                      lambda: {})
+            rgb_sparse = bayer.embed_rgb(bayer.mosaic(x))            # (B, H, W, 3)
+            # reflect-pad to multiples of 4 for the two U-Net downsamplings
+            hh, ww = rgb_sparse.shape[1:3]
+            hp, wp = (-hh) % 4, (-ww) % 4
+            inp = rgb_sparse
+            if hp or wp:
+                inp = F.pad(inp.permute(0, 3, 1, 2), (0, wp, 0, hp),
+                            mode="reflect").permute(0, 2, 3, 1)
+            idx = window_indices_mirror(inp.shape[0]).to(device)
+            out = module_copy(DDnet(), variables, device)(inp[idx])[:, :hh, :ww]
+            # min-max normalisation, guarded against a constant output
+            out = (out - out.min()) / torch.clamp(out.max() - out.min(), min=1e-12)
+            # the report's "noisy" input is the sparse-RGB mosaic
+            x = rgb_sparse
+        else:
+            from adaptivepnp_sci_torch.models.fastdvdnet import FastDVDnet
+            from adaptivepnp_sci_torch.solvers.priors import fastdvd_prior
+
+            prior = fastdvd_prior(FastDVDnet())
+            variables = _load_weights(args.ckpt, convert.load_fastdvdnet,
+                                      convert.fastdvdnet_from_flax, lambda: {})
+            out = prior.apply(module_copy(prior.model, variables, device), x, sig)
+        out = torch.clamp(out, 0, 1)
+        ref = torch.from_numpy(clean).to(device)
+        if args.network == "ddnet":
+            # the joint eval's batch_psnr: the mean of per-frame PSNRs
+            p_in = float(metrics.psnr_per_frame(ref, x).mean())
+            p_out = float(metrics.psnr_per_frame(ref, out).mean())
+        else:
+            p_in = float(metrics.psnr(ref, x))
+            p_out = float(metrics.psnr(ref, out))
+    print(f"sigma {args.sigma}: noisy {p_in:.2f} dB -> denoised {p_out:.2f} dB")
+    if args.out:
+        np.save(args.out, out.cpu().numpy())
 
 
 def _cmd_synth(args) -> None:
@@ -572,6 +727,36 @@ def main(argv: list[str] | None = None) -> None:
                         "the tile count): bounds peak memory")
     _add_device(r)
     r.set_defaults(fn=_cmd_reconstruct)
+
+    d = sub.add_parser("denoise", help="standalone denoiser test")
+    d.add_argument("--network", choices=["ffdnet", "fastdvd", "ddnet"], default="ffdnet",
+                   help="ddnet = joint demosaick+denoise eval: mosaic the noisy frames "
+                        "first (packages/DDnet/joint_test_fastdvdnet.py semantics)")
+    d.add_argument("--ckpt", required=True,
+                   help="denoiser checkpoint (.pth, /-keyed .npz, or a trainer .pt)")
+    d.add_argument("--gray", action="store_true",
+                   help="ffdnet only: grayscale mode (BT.601 luma, nc=64/nb=15 network)")
+    d.add_argument("--data", default=None, help=".npy clean frames; default synthetic")
+    d.add_argument("--sigma", type=float, default=25.0)
+    d.add_argument("--size", type=int, default=128)
+    d.add_argument("--seed", type=int, default=0)
+    d.add_argument("--out", default=None)
+    _add_device(d)
+    d.set_defaults(fn=_cmd_denoise)
+
+    t = sub.add_parser("train", help="offline denoiser training")
+    t.add_argument("--network", choices=["ffdnet", "fastdvd", "ddnet"], required=True)
+    t.add_argument("--data", default=None,
+                   help="dir of .npy/.npz clips; default: synthetic clips")
+    t.add_argument("--steps", type=int, default=2000)
+    t.add_argument("--batch", type=int, default=16)
+    t.add_argument("--lr", type=float, default=1e-3)
+    t.add_argument("--patch", type=int, default=96)
+    t.add_argument("--ckpt-dir", required=True)
+    t.add_argument("--resume", default=None, help="a trainer checkpoint (.pt) to continue")
+    t.add_argument("--seed", type=int, default=42)
+    _add_device(t)
+    t.set_defaults(fn=_cmd_train)
 
     s = sub.add_parser("synth", help="generate a synthetic CACTI scene")
     s.add_argument("--out", required=True)

@@ -327,3 +327,29 @@ def adam_state_to_optax(state_dict: Mapping[str, Any], model: nn.Module,
         count = max(count, int(st["step"]))
         m[name], v[name] = st["exp_avg"], st["exp_avg_sq"]
     return count, to_flax(m)["params"], to_flax(v)["params"]
+
+
+def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, Tensor]:
+    """Flax variables of FFDNet, FastDVDnet or DDnet (told apart by their
+    scopes: ``conv_0``; ``temp1`` with ``batch_stats``; ``temp11``) -> the
+    state dict of the port's model."""
+    params = variables["params"]
+    if "conv_0" in params:
+        return ffdnet_from_flax(variables)
+    if "temp11" in params:
+        return ddnet_from_flax(variables)
+    if "temp1" in params and "batch_stats" in variables:
+        return fastdvdnet_from_flax(variables)
+    raise ValueError(f"not FFDNet, FastDVDnet or DDnet variables: scopes {sorted(params)}")
+
+
+def flax_from_state_dict(state_dict: Mapping[str, Tensor]) -> dict:
+    """Inverse of :func:`state_dict_from_flax`: the port's FFDNet, FastDVDnet
+    or DDnet state dict -> Flax variables with numpy leaves."""
+    if any(k.startswith("model.") for k in state_dict):
+        return ffdnet_to_flax(state_dict)
+    if "weight_tensor_in" in state_dict:
+        return ddnet_to_flax(state_dict)
+    if any(k.startswith("temp1.") for k in state_dict):
+        return fastdvdnet_to_flax(state_dict)
+    raise ValueError("not an FFDNet, FastDVDnet or DDnet state dict")

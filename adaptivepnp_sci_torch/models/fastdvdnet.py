@@ -31,6 +31,9 @@ the 3B of per-window evaluation): identical math with frozen BatchNorm.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -39,6 +42,52 @@ from torch.utils.checkpoint import checkpoint
 
 from adaptivepnp_sci_torch.ops import convpair as convpair_ops
 from adaptivepnp_sci_torch.ops import cuda_kernels
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-5) whose train mode is Flax's
+    ``nn.BatchNorm(momentum=0.9)``, the JAX model's: the batch statistics in
+    float32, the variance biased and computed as ``E[x^2] - E[x]^2`` (clipped
+    at 0), the output ``(x - mean) * (rsqrt(var + eps) * weight) + bias``,
+    and the running statistics moved as ``0.9 * running + 0.1 * batch`` with
+    the biased variance (PyTorch's own feeds them the unbiased one). Eval
+    mode, the parameters and the buffers are ``nn.BatchNorm2d``'s.
+
+    ``update_stats`` False (:func:`frozen_batch_stats`) normalises by the
+    batch statistics without moving the running ones."""
+
+    update_stats = True
+
+    def forward(self, x: Tensor) -> Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+                self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None]
+        return (y + self.bias[None, :, None, None]).to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module) -> Iterator[None]:
+    """Train-mode BatchNorm inside ``module`` leaves its running statistics as
+    they are for the duration (a second forward whose statistics the JAX
+    package discards, or a recomputation in the backward pass)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    before = [m.update_stats for m in bns]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(bns, before):
+            m.update_stats = flag
 
 
 def _conv3(in_ch: int, out_ch: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
@@ -71,8 +120,8 @@ class CvBlock(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.convblock = nn.Sequential(
-            _conv3(in_ch, out_ch), nn.BatchNorm2d(out_ch), nn.ReLU(),
-            _conv3(out_ch, out_ch), nn.BatchNorm2d(out_ch), nn.ReLU())
+            _conv3(in_ch, out_ch), BatchNorm2d(out_ch), nn.ReLU(),
+            _conv3(out_ch, out_ch), BatchNorm2d(out_ch), nn.ReLU())
 
     def forward(self, x: Tensor) -> Tensor:
         conv0, bn0, _, conv1, bn1, _ = self.convblock
@@ -100,8 +149,8 @@ class InputCvBlock(nn.Module):
         mid = num_in_frames * interm_ch
         self.convblock = nn.Sequential(
             _conv3(num_in_frames * (num_color_channels + 1), mid, groups=num_in_frames),
-            nn.BatchNorm2d(mid), nn.ReLU(),
-            _conv3(mid, out_ch), nn.BatchNorm2d(out_ch), nn.ReLU())
+            BatchNorm2d(mid), nn.ReLU(),
+            _conv3(mid, out_ch), BatchNorm2d(out_ch), nn.ReLU())
 
     def forward(self, x: Tensor) -> Tensor:
         conv0, bn0, _, conv1, bn1, _ = self.convblock
@@ -116,7 +165,7 @@ class DownBlock(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.convblock = nn.Sequential(
-            _conv3(in_ch, out_ch, stride=2), nn.BatchNorm2d(out_ch), nn.ReLU(),
+            _conv3(in_ch, out_ch, stride=2), BatchNorm2d(out_ch), nn.ReLU(),
             CvBlock(out_ch, out_ch, dtype))
 
     def forward(self, x: Tensor) -> Tensor:
@@ -145,7 +194,7 @@ class OutputCvBlock(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.convblock = nn.Sequential(
-            _conv3(in_ch, in_ch), nn.BatchNorm2d(in_ch), nn.ReLU(), _conv3(in_ch, out_ch))
+            _conv3(in_ch, in_ch), BatchNorm2d(in_ch), nn.ReLU(), _conv3(in_ch, out_ch))
 
     def forward(self, x: Tensor) -> Tensor:
         conv0, bn0, _, conv1 = self.convblock
@@ -202,7 +251,10 @@ class FastDVDnet(nn.Module):
     def _block(self, block: DenBlock, in0: Tensor, in1: Tensor, in2: Tensor,
                noise_map: Tensor) -> Tensor:
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, in0, in1, in2, noise_map, use_reentrant=False)
+            # the recomputation must not move the running statistics again
+            return checkpoint(block, in0, in1, in2, noise_map, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(),
+                                                  frozen_batch_stats(block)))
         return block(in0, in1, in2, noise_map)
 
     @staticmethod

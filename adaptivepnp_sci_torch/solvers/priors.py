@@ -32,8 +32,9 @@ class Prior(NamedTuple):
         'packed4' (4-channel packed planes) or 'bayer1' (full-res mosaic).
       adapt_noise_std: gaussian noise added to the adaptation input
         (FastDVDnet 5/255, FFDNet 0).
-      adapt_mask: optional ('s'|'t'|'b', ratio) adaptation-input corruption;
-        not ported yet, it makes the adaptation raise.
+      adapt_mask: optional ('s'|'t'|'b', ratio) adaptation-input corruption
+        (:mod:`adaptivepnp_sci_torch.ops.corruption`), applied after the
+        adaptation noise.
       apply_adapt: optional memory-bounded variant of ``apply`` used inside
         the adaptation gradient (None = ``apply``).
     """

@@ -28,7 +28,13 @@ Adam state (``sequence``). Then the user's entry points: the pipelines'
 CPU plain path at 64x64x8 (``pipeline_parity``), and the command-line chain
 ``synth`` -> ``warmstart`` -> ``reconstruct`` (FastDVDnet bf16, with and
 without ``--ckpt auto --auto-demosaic``) -> ``eval`` -> ``serve`` at
-512x512x8 over two measurements, run in this process (``cli``).
+512x512x8 over two measurements, run in this process (``cli``). Then the
+offline training: three ``Trainer`` steps of each task (FFDNet, FastDVDnet,
+DDnet) on the card against the CPU with the same draws, and the SVD
+orthogonalization (``train_parity``); ``cli train`` of each network at its
+published width (batch 16, 96x96 patches), ``denoise`` with the trained
+FastDVDnet, and a 512x512x8 reconstruction in bf16 from the trained
+checkpoint (``train``).
 Each phase prints one JSON line; any failure exits nonzero. The last line is
 ``{"ok": true, "device": {...}}``. It exits 1 without printing a result when
 no CUDA device is present, and fails when the package is not beside it.
@@ -49,7 +55,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "k1", "k2", "k3", "slice_parity", "flagship",
           "fastdvd_parity", "fastdvd", "ddnet_parity", "ddnet", "drivers_parity", "tiled",
-          "sequence", "pipeline_parity", "cli", "kernels")
+          "sequence", "pipeline_parity", "cli", "train_parity", "train", "kernels")
 
 #: NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth, non-tensor fp32 rate and
 #: dense bf16 rate of the tensor cores
@@ -167,6 +173,53 @@ CLI_LAUNCHES = {
     "synth_leaves": {"x_update": 0, "tv_chambolle": 0, "convpair": 0},
     "warmstart_leaves": {"x_update": 40, "tv_chambolle": 40, "convpair": 0},
     "reconstruct_leaves": {"x_update": 76, "tv_chambolle": 40, "convpair": 288},
+}
+
+
+#: card-vs-CPU parity of the trainer: 3 steps of each task at 32x32, batch 2,
+#: from the same weights (FastDVDnet's and DDnet's of ``weights/``, FFDNet's
+#: in Flax's scheme) with the same draws (a CPU generator on both sides),
+#: steps_per_epoch 1 and milestones (0, 1), so the updates run at lr, lr/10,
+#: lr/1000; float32, TF32 off. The first step is the numerical parity of a
+#: step: its loss (relative) and its gradients (per tensor, against the
+#: tensor's largest entry). The three-step trajectory is held looser: Adam
+#: moves a weight whose gradient is near zero by about +-lr whatever the size
+#: of that gradient, so where two summation orders give such a gradient
+#: different signs the weights part by up to 2 lr; on FastDVDnet's trained
+#: weights that is a ten-thousandth of them (first chip runs: 1.7e-4 at
+#: most, 9e-6 of the weights beyond 1e-4, the third loss 1.3e-4 apart). Bars
+#: on the trajectory: losses (relative), all but a thousandth of the weights
+#: within a tenth of an Adam step at lr 1e-3 and every one within steps x lr,
+#: BatchNorm statistics (relative to the collection's largest entry). The
+#: SVD orthogonalization, which amplifies such differences further, is held
+#: alone, on FastDVDnet's convs (absolute). (At PyTorch's initialisation the
+#: gradients of FastDVDnet's bottom blocks are ill-conditioned: a 32x32
+#: float32 step on the CPU is 2.8e-2 from float64 in ``temp1.upc2``.)
+TRAIN_PARITY = dict(steps=3, patch=32, batch=2, lr=1e-3)
+TRAIN_PARITY_BAR = {"step1_loss_rel": 1e-5, "step1_grad_rel": 1e-4, "loss_rel": 1e-3,
+                    "params_abs": 1e-4, "params_frac_over": 1e-3, "stats_rel": 1e-4,
+                    "svd_abs": 1e-5}
+#: the training chain at full width through ``cli.main`` (``train --batch 16
+#: --patch 96`` at the published widths: steps per network), a 5-step warm-up
+#: before the timed steps; then ``denoise`` of the trained FastDVDnet, and one
+#: 512x512x8 measurement (``synth``, ``warmstart``) reconstructed on the bf16
+#: Bosphorus row from the trained ``final.pt``. FastDVDnet takes 100 steps:
+#: after 40 its eval-mode output beats the noisy input by only 0.3 dB (CPU
+#: rehearsal of this cell; 100 steps: 3.4 dB), inside the spread of the draws
+TRAIN_STEPS = {"fastdvd": 100, "ffdnet": 20, "ddnet": 20}
+TRAIN_BATCH, TRAIN_PATCH, TRAIN_WARMUP = 16, 96, 5
+TRAIN_SCENE = 512
+#: launches per step of that chain: training runs the library's convolutions
+#: (train-mode BatchNorm is not folded) and the float32 denoise too; the warm
+#: start 40 GAP-TV steps; the guarded solve from the warm-start file 36 ADMM +
+#: 40 masked GAP-TV x-updates, 40 TV proxes and 8 conv pairs per no-grad bf16
+#: denoiser call (36 calls)
+_NONE = {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
+TRAIN_LAUNCHES = {
+    "train_fastdvd": _NONE, "train_ffdnet": _NONE, "train_ddnet": _NONE, "denoise": _NONE,
+    "synth": _NONE,
+    "warmstart": {"x_update": 40, "tv_chambolle": 40, "convpair": 0},
+    "reconstruct": {"x_update": 76, "tv_chambolle": 40, "convpair": 288},
 }
 
 
@@ -372,7 +425,8 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    needed = {"k1", "k2", "k3", "flagship", "fastdvd", "ddnet", "tiled", "sequence", "cli"}
+    needed = {"k1", "k2", "k3", "flagship", "fastdvd", "ddnet", "tiled", "sequence", "cli",
+              "train"}
     if "kernels" in phases and not needed <= phases:
         ap.error(f"the kernels phase needs the {', '.join(sorted(needed))} phases")
     from adaptivepnp_sci_torch import (
@@ -1486,6 +1540,195 @@ def main(argv: list[str]) -> int:
              eval_stored_vs_recomputed_db=gap,
              launches=cli_counts, launches_by_step=CLI_LAUNCHES, **card)
 
+    # -------------------------------------------------------- train_parity
+    if "train_parity" in phases:
+        from adaptivepnp_sci_torch.models.ffdnet import ffdnet_color
+        from adaptivepnp_sci_torch.solvers.two_stage_admm import full_f32
+        from adaptivepnp_sci_torch.train import Trainer, TrainerConfig
+        from adaptivepnp_sci_torch.train import tasks as train_tasks
+        from adaptivepnp_sci_torch.train.regularizers import svd_orthogonalize
+
+        tp = TRAIN_PARITY
+        fdvd_sd = fastdvdnet_from_flax(load_variables_npz(str(ROOT / "weights" / "fastdvd.npz")))
+        cases = {
+            "ffdnet": (train_tasks.ffdnet_task(ffdnet_color()),
+                       ffdnet_from_flax(flax_style_ffdnet_params(96, 12, seed=0)), 1),
+            "fastdvd": (train_tasks.fastdvd_task(FastDVDnet()), fdvd_sd, 5),
+            "ddnet": (train_tasks.ddnet_task(DDnet()),
+                      ddnet_from_flax(load_variables_npz(str(ROOT / "weights" / "ddnet.npz"))), 5),
+        }
+        cfg = TrainerConfig(lr=tp["lr"], steps_per_epoch=1, milestones=(0, 1))
+        bars = TRAIN_PARITY_BAR
+        for name, (task, sd, length) in cases.items():
+            g = torch.Generator().manual_seed(7)
+            shape = (tp["batch"], length, tp["patch"], tp["patch"], 3)
+            batches = [torch.rand(shape, generator=g).numpy() for _ in range(tp["steps"])]
+            if length == 1:
+                batches = [b[:, 0] for b in batches]
+            runs = {}
+            for d in ("cpu", "cuda"):
+                tr = Trainer(task, sd, cfg, device=d)
+                tr.generator = torch.Generator().manual_seed(11)  # the same draws on both sides
+                t0 = time.perf_counter()
+                losses = tr.fit(iter(batches[:1]), max_steps=1, log_every=10**9)
+                grads = {k: p.grad.detach().cpu().clone() for k, p in tr.net.named_parameters()}
+                losses += tr.fit(iter(batches[1:]), max_steps=tp["steps"], log_every=10**9)
+                if d == "cuda":
+                    torch.cuda.synchronize()
+                runs[d] = (losses, grads, {k: v.cpu() for k, v in tr.variables.items()},
+                           time.perf_counter() - t0)
+            (lc, gc, vc, _), (lg, gg, vg, secs) = runs["cpu"], runs["cuda"]
+            names = list(gc)
+            readings = {
+                "step1_loss_rel": abs(lg[0] - lc[0]) / abs(lc[0]),
+                "step1_grad_rel": max(float((gg[k] - gc[k]).abs().max() / gc[k].abs().max())
+                                      for k in names),
+                "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(lg, lc))}
+            dparams = torch.cat([(vg[k] - vc[k]).abs().reshape(-1) for k in names])
+            readings["params_abs"] = float(dparams.max())
+            readings["params_frac_over"] = float((dparams > bars["params_abs"]).double().mean())
+            stats = [k for k in vc if k.endswith(("running_mean", "running_var"))]
+            readings["stats_rel"] = (max(float((vg[k] - vc[k]).abs().max()) for k in stats)
+                                     / max(float(vc[k].abs().max()) for k in stats)
+                                     if stats else 0.0)
+            moved = max(float((vc[k] - sd[k]).abs().max()) for k in names)
+            emit("train_parity", task=name, shape=list(shape), steps=tp["steps"], dtype="float32",
+                 losses_cuda=lg, losses_cpu=lc, **readings, n_params=dparams.numel(),
+                 params_moved=moved, cuda_seconds=secs, bar=bars)
+            ok = all(readings[k] <= bars[k] for k in readings if k != "params_abs")
+            require(ok and readings["params_abs"] <= tp["steps"] * tp["lr"]
+                    and moved > 0.5 * tp["lr"], f"train_parity {name}: {readings}")
+        nets = {}
+        for d in ("cpu", "cuda"):
+            net = FastDVDnet().to(d)
+            net.load_state_dict(fdvd_sd)
+            with full_f32():
+                svd_orthogonalize(net)
+            nets[d] = {k: v.detach().cpu() for k, v in net.named_parameters()}
+        svd_abs = max(float((nets["cuda"][k] - nets["cpu"][k]).abs().max()) for k in nets["cpu"])
+        emit("train_parity", case="svd_orthogonalize", model="FastDVDnet", max_abs_err=svd_abs,
+             bar=bars["svd_abs"])
+        require(svd_abs <= bars["svd_abs"], f"train_parity svd_orthogonalize: {svd_abs}")
+
+    # --------------------------------------------------------------- train
+    if "train" in phases:
+        import contextlib
+        import io
+        import re
+        import tempfile
+
+        from adaptivepnp_sci_torch import cli as port_cli
+        from adaptivepnp_sci_torch.train import Trainer
+
+        def run_train_cli(step: str, argv: list[str]) -> tuple[str, float]:
+            """One subcommand in this process, its launches counted from 0."""
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                port_cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(cuda_kernels.launches)
+            require(counts == TRAIN_LAUNCHES[step], f"train {step}: launches {counts}")
+            for k, v in counts.items():
+                train_counts[k] += v
+            for shape, v in cuda_kernels.convpair_launches.items():
+                train_shapes[shape] = train_shapes.get(shape, 0) + v
+            return buf.getvalue(), secs
+
+        # each step synchronised and timed on the host clock
+        step_log: list[tuple[float, float]] = []
+        plain_step = Trainer.train_step
+
+        def timed_step(self, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = plain_step(self, batch)
+            torch.cuda.synchronize()
+            step_log.append((time.perf_counter() - t0, float(loss)))
+            return loss
+
+        train_counts = {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
+        train_shapes: dict[tuple[int, int, int], int] = {}
+        networks: dict[str, dict] = {}
+        with tempfile.TemporaryDirectory() as d:
+            Trainer.train_step = timed_step
+            try:
+                for net, steps in TRAIN_STEPS.items():
+                    step_log.clear()
+                    torch.cuda.reset_peak_memory_stats()
+                    text, t = run_train_cli(f"train_{net}", [
+                        "train", "--network", net, "--steps", str(steps), "--batch",
+                        str(TRAIN_BATCH), "--patch", str(TRAIN_PATCH), "--ckpt-dir",
+                        str(Path(d) / net)])
+                    times = [s for s, _ in step_log]
+                    losses = [l for _, l in step_log]
+                    require(len(times) == steps and all(np.isfinite(losses)),
+                            f"train {net}: {len(times)} steps, losses {losses}")
+                    networks[net] = {
+                        "seconds_per_step": statistics.mean(times[TRAIN_WARMUP:]),
+                        "first_step_seconds": times[0],
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "first_losses": losses[:5], "last_losses": losses[-5:],
+                        "command_seconds": t, "out": text.strip().splitlines()[-1]}
+            finally:
+                Trainer.train_step = plain_step
+            fd = networks["fastdvd"]
+            require(statistics.mean(fd["last_losses"]) < statistics.mean(fd["first_losses"]),
+                    f"train fastdvd: the loss did not fall {fd}")
+            final = str(Path(d) / "fastdvd" / "final.pt")
+            text, t = run_train_cli("denoise", ["denoise", "--network", "fastdvd", "--ckpt", final])
+            got = re.search(r"noisy (\S+) dB -> denoised (\S+) dB", text)
+            require(got is not None, f"train denoise: {text}")
+            denoise = {"noisy_db": float(got.group(1)), "denoised_db": float(got.group(2)),
+                       "seconds": t}
+            require(denoise["denoised_db"] > denoise["noisy_db"],
+                    f"train denoise: no better than the noisy input {denoise}")
+            s, w, r = (str(Path(d) / f) for f in ("s.mat", "w.mat", "r.mat"))
+            _, t_synth = run_train_cli("synth", ["synth", "--out", s, "--size", str(TRAIN_SCENE),
+                                                 "--frames", "8", "--n-meas", "1", "--seed", "42"])
+            _, t_warm = run_train_cli("warmstart", ["warmstart", "--data", s, "--out", w])
+            text, t_rec = run_train_cli("reconstruct", [
+                "reconstruct", "--data", s, "--warm", w, "--denoiser", "fastdvd", "--bf16",
+                "--name", "Bosphorus", "--ckpt", final, "--out", r])
+            import scipy.io as sio
+
+            x = sio.loadmat(r)["v_recon_bayer"]
+            require(x.shape == (TRAIN_SCENE, TRAIN_SCENE, 8) and bool(np.isfinite(x).all()),
+                    f"train reconstruct: {x.shape}")
+            reconstruct = {"seconds": t_rec, "out": text.strip(), "synth_seconds": t_synth,
+                           "warmstart_seconds": t_warm}
+        # where a FastDVDnet step's time goes: 3 steps under the profiler (with
+        # recomputation, as trained above), and steps without recomputation
+        from adaptivepnp_sci_torch.train import TrainerConfig
+        from adaptivepnp_sci_torch.train.tasks import fastdvd_task
+
+        g = torch.Generator().manual_seed(3)
+        clips = [torch.rand((TRAIN_BATCH, 5, TRAIN_PATCH, TRAIN_PATCH, 3), generator=g).numpy()
+                 for _ in range(3)]
+        breakdown = {}
+        for remat in (True, False):
+            tr = Trainer(fastdvd_task(FastDVDnet(remat=remat)), None, TrainerConfig(), device=dev)
+            for b in clips:
+                tr.train_step(b)
+            if remat:
+                prof = flagship_profile(torch, lambda: [tr.train_step(b) for b in clips], None)
+                breakdown["profile_3_steps"] = prof
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in clips * 2:
+                tr.train_step(b)
+            torch.cuda.synchronize()
+            breakdown[f"seconds_per_step_remat_{remat}"] = (time.perf_counter() - t0) / 6
+        report["launches_train"] = train_counts
+        report["launches_convpair_train"] = train_shapes
+        emit("train", batch=TRAIN_BATCH, patch=TRAIN_PATCH, steps=TRAIN_STEPS,
+             warmup=TRAIN_WARMUP, networks=networks, denoise=denoise, reconstruct=reconstruct,
+             fastdvd_breakdown=breakdown, launches=train_counts,
+             launches_by_step=TRAIN_LAUNCHES, **card)
+
     # ------------------------------------------------------------- kernels
     if "kernels" in phases:
         # launches on the main paths: the flagship's for its two kernels, the
@@ -1496,8 +1739,10 @@ def main(argv: list[str]) -> int:
         launches_tiled = dict(report["launches_tiled"])
         launches_sequence = dict(report["launches_sequence"])
         launches_cli = dict(report["launches_cli"])
+        launches_train = dict(report["launches_train"])
         for name, shape in CONVPAIR_MAIN_SHAPES.items():
             launches_cli[f"convpair_{name}"] = report["launches_convpair_cli"].get(shape, 0)
+            launches_train[f"convpair_{name}"] = report["launches_convpair_train"].get(shape, 0)
             launches[f"convpair_{name}"] = report["launches_convpair"][shape]
             launches_ddnet[f"convpair_{name}"] = report["launches_convpair_ddnet"][shape]
             launches_tiled[f"convpair_{name}"] = report["launches_convpair_tiled"][shape]
@@ -1520,13 +1765,14 @@ def main(argv: list[str]) -> int:
                          "launches_tiled": launches_tiled[name],
                          "launches_sequence": launches_sequence[name],
                          "launches_cli": launches_cli[name],
+                         "launches_train": launches_train[name],
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                          "previous_ms": r.get("previous_ms"), "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                          "library_ms": r.get("library_ms"),
                          **{k: r[k] for k in extra.get(name, ())}})
         require(all(r["launches"] > 0 and r["launches_ddnet_row"] > 0 and r["launches_tiled"] > 0
-                    and r["launches_cli"] > 0 for r in rows),
+                    and r["launches_cli"] > 0 and r["launches_train"] > 0 for r in rows),
                 f"a kernel was never launched: {rows}")
         require(all(r["launches_sequence"] > 0 for r in rows[:2]),
                 f"the sequence path missed a kernel: {rows}")

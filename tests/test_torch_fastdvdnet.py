@@ -135,10 +135,10 @@ def test_forward_matches_flax(variables, rng, sigma):
 def test_train_branch_matches_flax(variables, rng):
     """Train mode: batch statistics per triplet call. Outputs agree to 1e-4
     (normalising by batch statistics amplifies the summation-order noise).
-    The running statistics move by momentum 0.1 in both: the means agree to
-    1e-4. PyTorch feeds the running variance the unbiased batch variance,
-    Flax the biased one, a factor n/(n-1) with as few as n = 2*8*6 values per
-    channel at the U-Net's bottom, over up to three updates: rtol 1.5e-2."""
+    The running statistics move as Flax's do (momentum 0.9, the biased batch
+    variance; ``models.fastdvdnet.BatchNorm2d``): means and variances agree
+    to 1e-4 (``tests/test_torch_train_parts.py`` holds the convention at
+    1e-6)."""
     windows = rng.random((2, 5, 32, 24, 3), dtype=np.float32)
     want, new = fastdvdnet.FastDVDnet().apply(
         variables, jnp.asarray(windows), jnp.float32(0.05), True, mutable=["batch_stats"])
@@ -154,8 +154,7 @@ def test_train_branch_matches_flax(variables, rng):
         for p in path:
             before = before[p.key]
         assert np.abs(np.asarray(leaf) - before).max() > 0  # the statistics moved
-        rtol = 1.5e-2 if path[-1].key == "var" else 1e-4
-        np.testing.assert_allclose(mine, np.asarray(leaf), rtol=rtol, atol=1e-5)
+        np.testing.assert_allclose(mine, np.asarray(leaf), rtol=1e-4, atol=1e-5)
 
 
 def test_seq_circular_matches_flax_and_per_window_forward(variables, rng):

@@ -217,7 +217,12 @@ def test_schedule_matches_jax():
 
 def test_unported_adaptation_options_raise():
     prior = tffdnet_prior(TFFDNet(nc=8, nb=4))
-    # the adaptation crop is ported (its parity: tests/test_torch_pipelines.py)
+    # the adaptation crop and the input corruption are ported (their parity:
+    # tests/test_torch_pipelines.py, tests/test_torch_train_parts.py); a
+    # corruption of an unknown mode raises the JAX package's ValueError
     assert callable(tonline.make_adapt_fn(prior, tonline.AdaptConfig(crop=8)))
-    with pytest.raises(NotImplementedError):
-        tonline.make_adapt_fn(prior._replace(adapt_mask=("s", 0.1)), tonline.AdaptConfig())
+    for mode in ("s", "t", "b"):
+        assert callable(tonline.make_adapt_fn(prior._replace(adapt_mask=(mode, 0.1)),
+                                              tonline.AdaptConfig()))
+    with pytest.raises(ValueError):
+        tonline.make_adapt_fn(prior._replace(adapt_mask=("q", 0.1)), tonline.AdaptConfig())

@@ -93,6 +93,19 @@ with tempfile.TemporaryDirectory() as d:
     ws = pipelines.run_warm_start(sd, iters=3, device="cpu")
     assert ws.x_bayer.shape == (2, 4, 16, 16)
     assert mat_io.load_warm_start.__module__ == "adaptivepnp_sci_torch.data.mat_io"
+    # offline training and the standalone denoiser test, and the corruption masks
+    from adaptivepnp_sci_torch import Trainer, TrainerConfig
+    from adaptivepnp_sci_torch.ops import corruption
+    from adaptivepnp_sci_torch.train import augment, datasets, regularizers, tasks
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        cli.main(["train", "--network", "ffdnet", "--steps", "1", "--batch", "2", "--patch", "16",
+                  "--ckpt-dir", os.path.join(d, "ck"), "--device", "cpu"])
+        cli.main(["denoise", "--network", "ffdnet", "--ckpt", os.path.join(d, "ck", "final.pt"),
+                  "--size", "16", "--device", "cpu"])
+    assert "trained ffdnet for 1 steps" in out.getvalue() and "denoised" in out.getvalue(), \
+        out.getvalue()
+    masked = corruption.mask_block(torch.Generator().manual_seed(0), torch.ones(1, 5, 4, 4, 3), 0.5)
+    assert 0 < float((masked < 1).float().mean()) < 1
 try:
     ab_convpair.main(32, 16, 1)
 except RuntimeError as err:

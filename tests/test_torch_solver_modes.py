@@ -203,17 +203,18 @@ def test_invalid_combinations_raise_value_error(case):
 
 @pytest.mark.parametrize("case", ["gap_deep", "adapt_mask", "adapt_crop"])
 def test_still_unported_options_raise(case):
-    """Options not ported raise ``NotImplementedError``; the adaptation crop,
-    ported since, keeps the JAX package's ``ValueError`` for an odd crop."""
+    """Options not ported raise ``NotImplementedError``; the adaptation crop
+    and input corruption, ported since, keep the JAX package's ``ValueError``
+    for an odd crop and an unknown corruption mode."""
     sc = tmake_scene(b=8, h=16, w=16, seed=0)
     adapt = TAdaptConfig(interval_iter=2)
     prior = tfastdvd_prior(TFastDVDnet())
     kw, p = {
         "gap_deep": (dict(denoiser="gap_deep"), prior),
-        "adapt_mask": (dict(adapt=adapt), tfastdvd_prior(TFastDVDnet(), adapt_mask=("s", 0.1))),
+        "adapt_mask": (dict(adapt=adapt), tfastdvd_prior(TFastDVDnet(), adapt_mask=("q", 0.1))),
         "adapt_crop": (dict(adapt=dataclasses.replace(adapt, crop=7)), prior),
     }[case]
-    error = ValueError if case == "adapt_crop" else NotImplementedError
+    error = NotImplementedError if case == "gap_deep" else ValueError
     cfg = tadmm.ADMMConfig(sigma=(0.1,), iters=(3,), **{"denoiser": "fastdvd", **kw})
     with pytest.raises(error):
         tadmm.two_stage_admm(sc.meas, sc.mask, cfg, p, device="cpu")

@@ -259,13 +259,13 @@ def test_unported_options_raise():
                {"denoiser_relax": 0.5}, {"faithful_aliasing": True}):
         cfg = tadmm.ADMMConfig(sigma=(0.1,), iters=(1,), **{"denoiser": "tv", **kw})
         assert tadmm.two_stage_admm(sc.meas, sc.mask, cfg, device="cpu").x_bayer.shape == (8, 16, 16)
-    # FastDVDnet is ported: without a prior it is a usage error, and its
-    # options that still wait raise
+    # FastDVDnet is ported: without a prior it is a usage error; its input
+    # corruption is ported too, and an unknown corruption mode is refused
     fast = tadmm.ADMMConfig(sigma=(0.1,), iters=(1,), denoiser="fastdvd")
     with pytest.raises(ValueError):
         tadmm.two_stage_admm(sc.meas, sc.mask, fast, device="cpu")
-    masked = tfastdvd_prior(TFastDVDnet(), adapt_mask=("s", 0.1))
-    with pytest.raises(NotImplementedError):
+    masked = tfastdvd_prior(TFastDVDnet(), adapt_mask=("q", 0.1))
+    with pytest.raises(ValueError):
         tadmm.two_stage_admm(
             sc.meas, sc.mask,
             tadmm.ADMMConfig(sigma=(0.1,), iters=(1,), denoiser="fastdvd", adapt=TAdaptConfig()),
