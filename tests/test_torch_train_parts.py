@@ -44,6 +44,16 @@ from tests.test_torch_train_tasks import run_case
 WEIGHTS = Path(__file__).resolve().parent.parent / "weights"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Small tensors gain nothing from many threads, and the other test
+    workers share the cores: two intra-op threads while this file runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def fdvd_vars():
     return load_variables_npz(str(WEIGHTS / "fastdvd.npz"))

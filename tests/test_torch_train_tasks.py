@@ -42,6 +42,16 @@ LOSS_RTOL, GRAD_REL, STATS_REL = 1e-5, 1e-4, 1e-6
 SIGMA_FDVD = (5 / 255, 55 / 255)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Small tensors gain nothing from many threads, and the other test
+    workers share the cores: two intra-op threads while this file runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def teacher_fn(lib):
     """A shape-preserving, sigma-aware teacher, written for both frameworks."""
     def teacher(noisy_center, sigma):

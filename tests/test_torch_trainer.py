@@ -52,6 +52,16 @@ WEIGHTS = Path(__file__).resolve().parent.parent / "weights"
 CFG = dict(lr=1e-3, steps_per_epoch=1, milestones=(0, 1), orthogonalize_every=1, seed=42)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Small tensors gain nothing from many threads, and the other test
+    workers share the cores: two intra-op threads while this file runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _clips(seed, n=2):
     return np.random.default_rng(seed).random((n, 5, 16, 16, 3), dtype=np.float32)
 
@@ -184,7 +194,6 @@ def test_cli_train_resume_and_reconstruct(tmp_path):
     """``train`` for each network at 16x16, batch 2, 2 steps; ``--resume``
     continues the step count; ``reconstruct`` reads the trained ``final.pt``;
     orbax directories are refused."""
-    torch.set_num_threads(4)
     common = ["--steps", "2", "--batch", "2", "--patch", "16", "--device", "cpu"]
     for net in ("ffdnet", "fastdvd", "ddnet"):
         out = _run(tmain, ["train", "--network", net, "--ckpt-dir", str(tmp_path / net)] + common)
