@@ -186,7 +186,7 @@ CLI_LAUNCHES = {
 #: moves a weight whose gradient is near zero by about +-lr whatever the size
 #: of that gradient, so where two summation orders give such a gradient
 #: different signs the weights part by up to 2 lr; on FastDVDnet's trained
-#: weights that is a ten-thousandth of them (first chip runs: 1.7e-4 at
+#: weights that is a ten-thousandth of them (on an H100 at 700 W: 1.7e-4 at
 #: most, 9e-6 of the weights beyond 1e-4, the third loss 1.3e-4 apart). Bars
 #: on the trajectory: losses (relative), all but a thousandth of the weights
 #: within a tenth of an Adam step at lr 1e-3 and every one within steps x lr,
@@ -204,8 +204,8 @@ TRAIN_PARITY_BAR = {"step1_loss_rel": 1e-5, "step1_grad_rel": 1e-4, "loss_rel": 
 #: before the timed steps; then ``denoise`` of the trained FastDVDnet, and one
 #: 512x512x8 measurement (``synth``, ``warmstart``) reconstructed on the bf16
 #: Bosphorus row from the trained ``final.pt``. FastDVDnet takes 100 steps:
-#: after 40 its eval-mode output beats the noisy input by only 0.3 dB (CPU
-#: rehearsal of this cell; 100 steps: 3.4 dB), inside the spread of the draws
+#: after 40 its eval-mode output beats the noisy input by only 0.3 dB (this
+#: cell on the CPU; 100 steps: 3.4 dB), inside the spread of the draws
 TRAIN_STEPS = {"fastdvd": 100, "ffdnet": 20, "ddnet": 20}
 TRAIN_BATCH, TRAIN_PATCH, TRAIN_WARMUP = 16, 96, 5
 TRAIN_SCENE = 512
