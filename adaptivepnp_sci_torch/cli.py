@@ -18,8 +18,7 @@ reference's), ``.npz`` (the ``/``-keyed files of ``weights/``) or ``.pt``
 (this package's trainer checkpoints; ``train`` writes ``{ckpt-dir}/final.pt``),
 never orbax directories; ``--random-init`` and ``train`` draw PyTorch's
 default initialisation under a fixed seed, not the JAX package's
-``PRNGKey`` Flax weights; ``synth`` makes the ``smooth``, ``textured`` and
-``leaves`` scenes, not the photograph styles.
+``PRNGKey`` Flax weights.
 """
 
 from __future__ import annotations
@@ -457,12 +456,8 @@ def _cmd_synth(args) -> None:
     from adaptivepnp_sci_torch.data.synthetic import make_scene
 
     style = args.style or ("textured" if args.textured else "smooth")
-    if style in ("photo", "photos") or args.photo_source:
-        raise SystemExit(
-            "error: the photograph styles (--style photo/photos, --photo-source) "
-            "are not ported yet; use --style smooth, textured or leaves")
     s = make_scene(b=args.frames, h=args.size, w=args.size, seed=args.seed,
-                   n_meas=args.n_meas, style=style)
+                   n_meas=args.n_meas, style=style, photo_source=args.photo_source)
     meas = s.meas if s.meas.ndim == 3 else s.meas[..., None]
     orig = s.orig_bayer if s.orig_bayer.ndim == 4 else s.orig_bayer[None]
     t, b, h, w = orig.shape
@@ -764,10 +759,13 @@ def main(argv: list[str] | None = None) -> None:
                    help="overlay drifting gratings/rectangles (harder scene)")
     s.add_argument("--style", choices=["smooth", "textured", "leaves", "photo", "photos"],
                    default=None,
-                   help="scene statistics; 'leaves' = dead-leaves occlusion model. "
-                        "'photo' and 'photos' are not ported yet")
+                   help="scene statistics; 'leaves' = dead-leaves occlusion "
+                        "model (natural-image statistics with motion), "
+                        "'photo' = real photograph under global camera pan, "
+                        "'photos' = any bundled real photograph under a "
+                        "pan+zoom+roll similarity camera path")
     s.add_argument("--photo-source", choices=["hopper", "street"], default=None,
-                   help="not ported yet")
+                   help="which real photograph style='photo' pans over")
     s.add_argument("--size", type=int, default=512)
     s.add_argument("--frames", type=int, default=8)
     s.add_argument("--n-meas", type=int, default=1)

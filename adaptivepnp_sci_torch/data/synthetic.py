@@ -4,12 +4,15 @@
 
 An RGB video cube is CFA-mosaicked per frame, modulated by per-frame binary
 masks, and collapsed into one snapshot per group of B frames, the
-acquisition model of the upstream reconstruction scripts. The photograph styles of the JAX
-package are not ported yet.
+acquisition model of the upstream reconstruction scripts. The photograph
+styles read the decoded pixels of ``assets/photos.npz`` (no PIL, no
+matplotlib; provenance in ``assets/README.md``) and resample them with SciPy,
+as the JAX package does.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -138,6 +141,115 @@ def _dead_leaves_video(b: int, h: int, w: int,
     return video
 
 
+_PHOTO_CACHE: dict[tuple[str, float], np.ndarray] = {}
+
+#: The real photographs of ``assets/photos.npz``: matplotlib's bundled
+#: grace_hopper portrait and the IPOL FFDNet demo photograph (a stone village
+#: street: natural texture, depth edges, foliage).
+PHOTO_SOURCES = ("hopper", "street")
+
+_PHOTOS_NPZ = os.path.join(os.path.dirname(__file__), "assets", "photos.npz")
+
+
+def _photo_source(scale: float = 1.0, name: str = "hopper") -> np.ndarray:
+    """A photograph as float32 ``(H, W, 3)`` in [0, 1] (``uint8 / 255``),
+    zoomed bilinearly per channel when ``scale > 1``, cached per
+    ``(name, round(scale, 4))``: ``make_scene(style='photo', n_meas=N)`` and
+    the training clips resample the same base images again and again."""
+    key = (name, round(float(scale), 4))
+    if key not in _PHOTO_CACHE:
+        from scipy.ndimage import zoom
+
+        if name not in PHOTO_SOURCES:
+            raise ValueError(f"unknown photo source {name!r}; have {PHOTO_SOURCES}")
+        with np.load(_PHOTOS_NPZ) as photos:
+            img = photos[name].astype(np.float32) / 255.0
+        if key[1] > 1.0:
+            img = np.stack(
+                [zoom(img[..., c], key[1], order=1) for c in range(3)], axis=-1
+            )
+        _PHOTO_CACHE[key] = img
+    return _PHOTO_CACHE[key]
+
+
+def _photo_video(b: int, h: int, w: int, rng: np.random.Generator,
+                 source: str = "hopper") -> np.ndarray:
+    """Real-photograph video: a global subpixel camera pan over ``source``
+    (an entry of :data:`PHOTO_SOURCES`), bilinear resampling per frame."""
+    from scipy.ndimage import map_coordinates
+
+    # per-frame pan velocity (px/frame) + margin for the travel
+    vy = float(rng.uniform(1.0, 3.0)) * (1 if rng.random() < 0.5 else -1)
+    vx = float(rng.uniform(0.2, 1.0)) * (1 if rng.random() < 0.5 else -1)
+    img = _photo_source(name=source)
+    need_h = h + abs(vy) * (b - 1) + 2
+    need_w = w + abs(vx) * (b - 1) + 2
+    s = max(need_h / img.shape[0], need_w / img.shape[1], 1.0)
+    if s > 1.0:
+        img = _photo_source(s, name=source)
+    y_slack = img.shape[0] - h - abs(vy) * (b - 1) - 1
+    x_slack = img.shape[1] - w - abs(vx) * (b - 1) - 1
+    y0 = float(rng.uniform(0, max(y_slack, 0))) + (abs(vy) * (b - 1) if vy < 0 else 0)
+    x0 = float(rng.uniform(0, max(x_slack, 0))) + (abs(vx) * (b - 1) if vx < 0 else 0)
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    video = np.empty((b, h, w, 3), np.float32)
+    for t in range(b):
+        cy, cx = y0 + vy * t, x0 + vx * t
+        coords = np.stack([yy + cy, xx + cx])
+        for c in range(3):
+            video[t, ..., c] = map_coordinates(
+                img[..., c], coords, order=1, mode="reflect"
+            )
+    return np.clip(video, 0.0, 1.0)
+
+
+def _photos_video(b: int, h: int, w: int, rng: np.random.Generator) -> np.ndarray:
+    """Multi-source real-photograph video under a similarity camera path:
+    the photograph drawn from :data:`PHOTO_SOURCES`, then per frame a pan, a
+    slow zoom and a slow roll, so the optical flow is not one global vector
+    (the training-pool variant of :func:`_photo_video`)."""
+    from scipy.ndimage import map_coordinates
+
+    name = PHOTO_SOURCES[int(rng.integers(len(PHOTO_SOURCES)))]
+    img = _photo_source(name=name)
+    # camera path: pan velocity (px/frame), zoom rate and roll rate per frame
+    vy = float(rng.uniform(-3.0, 3.0))
+    vx = float(rng.uniform(-3.0, 3.0))
+    zoom_rate = float(rng.uniform(-0.008, 0.008))   # ±0.8 %/frame
+    roll_rate = float(rng.uniform(-0.008, 0.008))   # ±0.46°/frame
+    # the source must hold the rotated, zoomed-out crop plus the pan travel
+    margin = 1.3  # rotation/zoom-out slack on the crop diagonal
+    need = max(
+        margin * h + abs(vy) * (b - 1) + 2, margin * w + abs(vx) * (b - 1) + 2
+    )
+    s = max(need / img.shape[0], need / img.shape[1], 1.0)
+    if s > 1.0:
+        img = _photo_source(s, name=name)
+    ih, iw = img.shape[:2]
+    # random crop centre with slack for the pan travel
+    cy0 = float(rng.uniform(margin * h / 2, ih - margin * h / 2 - abs(vy) * (b - 1)))
+    cx0 = float(rng.uniform(margin * w / 2, iw - margin * w / 2 - abs(vx) * (b - 1)))
+    cy0 += abs(vy) * (b - 1) if vy < 0 else 0.0
+    cx0 += abs(vx) * (b - 1) if vx < 0 else 0.0
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    gy, gx = yy - (h - 1) / 2.0, xx - (w - 1) / 2.0  # crop-centred grid
+    video = np.empty((b, h, w, 3), np.float32)
+    for t in range(b):
+        theta = roll_rate * t
+        scale = (1.0 + zoom_rate) ** t
+        ct, st = np.cos(theta) / scale, np.sin(theta) / scale
+        sy = cy0 + vy * t + ct * gy - st * gx
+        sx = cx0 + vx * t + st * gy + ct * gx
+        coords = np.stack([sy, sx])
+        for c in range(3):
+            video[t, ..., c] = map_coordinates(
+                img[..., c], coords, order=1, mode="reflect"
+            )
+    return np.clip(video, 0.0, 1.0)
+
+
 def make_scene(
     b: int = 8,
     h: int = 512,
@@ -146,6 +258,7 @@ def make_scene(
     n_meas: int = 1,
     textured: bool = False,
     style: str | None = None,
+    photo_source: str | None = None,
 ) -> Scene:
     """Synthesize ``n_meas`` CACTI snapshots of a B-frame RGB video.
 
@@ -160,13 +273,14 @@ def make_scene(
       natural-image statistics (scale-invariant edges, heavy-tailed
       gradients), the closest stand-in for real captures available without
       shipping data.
-    * ``'photo'`` / ``'photos'`` — real photographs; not ported yet.
+    * ``'photo'`` — a real photograph (``photo_source``: ``'hopper'``, the
+      default, or ``'street'``) under a smooth global camera pan.
+    * ``'photos'`` — a real photograph drawn from :data:`PHOTO_SOURCES` under
+      a pan + zoom + roll camera path; the training-pool variant.
     """
     if style is None:
         style = "textured" if textured else "smooth"
-    if style in ("photo", "photos"):
-        raise NotImplementedError(f"style={style!r} is not ported yet")
-    if style not in ("smooth", "textured", "leaves"):
+    if style not in ("smooth", "textured", "leaves", "photo", "photos"):
         raise ValueError(f"unknown scene style {style!r}")
     rng = np.random.default_rng(seed)
     mask = (rng.random((b, h, w)) > 0.5).astype(np.float32)
@@ -177,6 +291,10 @@ def make_scene(
     for i in range(n_meas):
         if style == "leaves":
             rgb = _dead_leaves_video(b, h, w, rng)
+        elif style == "photo":
+            rgb = _photo_video(b, h, w, rng, source=photo_source or "hopper")
+        elif style == "photos":
+            rgb = _photos_video(b, h, w, rng)
         else:
             rgb = _smooth_video(b, h, w, rng)
         if style == "textured":

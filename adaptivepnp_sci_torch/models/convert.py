@@ -20,6 +20,11 @@ DDnet: Flax scopes ``{temp1,temp11,temp2}/{inc_1,downc*,upc*,outc,fusion}/
 ``weight_tensor_*`` keep their names and shapes. All convolutions are
 bias-free.
 
+FFDNet-IPOL (Flax ``conv_{i}`` / ``bn_{i}`` onto the
+reference's ``Sequential`` indices), ``SpatialDnCNN`` (one FastDVDnet
+DenBlock's scopes), and the block zoo and ``PyramidEncoder``, whose modules
+are named after their Flax scopes (:func:`blocks_from_flax`, by path alone).
+
 Adam: optax's ``ScaleByAdamState`` (``count``, and the moment trees ``mu``,
 ``nu`` shaped like ``params``) maps onto ``torch.optim.Adam``'s state dict
 (``step``, ``exp_avg``, ``exp_avg_sq`` per parameter) through the same
@@ -353,3 +358,114 @@ def flax_from_state_dict(state_dict: Mapping[str, Tensor]) -> dict:
     if any(k.startswith("temp1.") for k in state_dict):
         return fastdvdnet_to_flax(state_dict)
     raise ValueError("not an FFDNet, FastDVDnet or DDnet state dict")
+
+
+# ---------------------------------------------------------------------------
+# FFDNet-IPOL, SpatialDnCNN, PyramidEncoder, the block zoo
+# ---------------------------------------------------------------------------
+
+_IPOL_PREFIX = "intermediate_dncnn.itermediate_dncnn."
+
+
+def _ipol_index(scope: str) -> int:
+    """Flax ``conv_{i}`` / ``bn_{i}`` -> index in ``FFDNetIPOL.layers``: a
+    conv at 0, then (conv, BN, ReLU) triples from 2."""
+    kind, i = scope.split("_")
+    i = int(i)
+    return (0 if i == 0 else 3 * i - 1) if kind == "conv" else 3 * i
+
+
+def ffdnet_ipol_from_flax(variables: Mapping[str, Any]) -> dict[str, Tensor]:
+    """Flax FFDNet-IPOL variables (``params``, ``batch_stats``; numpy leaves)
+    -> state dict for :class:`~adaptivepnp_sci_torch.models.ffdnet_ipol.FFDNetIPOL`."""
+    def layers(tree: Mapping[str, Any]) -> dict:
+        return {"layers": {str(_ipol_index(scope)): v for scope, v in tree.items()}}
+
+    return blocks_from_flax({"params": layers(variables["params"]),
+                             "batch_stats": layers(variables.get("batch_stats", {}))})
+
+
+def ffdnet_ipol_to_flax(state_dict: Mapping[str, Tensor]) -> dict:
+    """Inverse of :func:`ffdnet_ipol_from_flax`."""
+    entries: dict[int, dict[str, np.ndarray]] = {}
+    for key, t in state_dict.items():
+        idx, leaf = key.removeprefix("layers.").split(".")
+        entries.setdefault(int(idx), {})[leaf] = t.detach().cpu().numpy()
+    params: dict = {}
+    stats: dict = {}
+    for idx, e in sorted(entries.items()):
+        if "running_mean" in e:  # BatchNorm at 3 i
+            name = f"bn_{idx // 3}"
+            params[name] = {"scale": e["weight"], "bias": e["bias"]}
+            stats[name] = {"mean": e["running_mean"], "var": e["running_var"]}
+        else:  # a conv at 0 or 3 i - 1
+            params[f"conv_{0 if idx == 0 else (idx + 1) // 3}"] = {
+                "kernel": conv_kernel(e["weight"])}
+    return {"params": params, "batch_stats": stats}
+
+
+def load_ffdnet_ipol(path: str) -> dict[str, Tensor]:
+    """Load a reference IPOL FFDNet checkpoint (``net_rgb.pth``,
+    ``net_gray.pth``: ``intermediate_dncnn.itermediate_dncnn.{i}``, the
+    reference's spelling) as a state dict for
+    :class:`~adaptivepnp_sci_torch.models.ffdnet_ipol.FFDNetIPOL`: the
+    indices match."""
+    return {f"layers.{k[len(_IPOL_PREFIX):]}": v
+            for k, v in load_torch_state_dict(path).items() if k.startswith(_IPOL_PREFIX)}
+
+
+def spatial_dncnn_from_flax(variables: Mapping[str, Any]) -> dict[str, Tensor]:
+    """Flax ``SpatialDnCNN`` variables -> state dict for
+    :class:`~adaptivepnp_sci_torch.models.fastdvdnet.SpatialDnCNN`: one
+    FastDVDnet DenBlock's scopes and ``convblock`` indices. A reference
+    ``spatialDnCNN`` checkpoint loads as it is (:func:`load_torch_state_dict`)."""
+    sd = fastdvdnet_from_flax({"params": {"temp1": variables["params"]},
+                               "batch_stats": {"temp1": variables["batch_stats"]}})
+    return {k.removeprefix("temp1."): v for k, v in sd.items()}
+
+
+def pyramid_encoder_state_dict_from_reference(sd: Mapping[str, Any]) -> dict[str, Tensor]:
+    """A reference pyramid ``encoder`` state dict
+    (``models/network_demosaicking.py:137-182``) -> state dict for
+    :class:`~adaptivepnp_sci_torch.models.ddnet.PyramidEncoder`:
+    ``Sequential`` indices join with an underscore (``conv_first01.0`` ->
+    ``conv_first01_0``) and ``rbs.{i}`` becomes ``rbs_{i}``. Its Flax
+    variables map by :func:`blocks_from_flax`."""
+    out: dict[str, Tensor] = {}
+    for key, val in sd.items():
+        *body, leaf = key.removeprefix("module.").split(".")
+        if body[0] == "rbs":
+            body = [f"rbs_{body[1]}", *body[2:]]
+        elif len(body) == 2:
+            body = [f"{body[0]}_{body[1]}"]
+        out[".".join((*body, leaf))] = torch.as_tensor(
+            val if isinstance(val, Tensor) else np.asarray(val), dtype=torch.float32)
+    return out
+
+
+#: Flax leaf -> state-dict leaf (a ``kernel`` is a conv or transposed-conv
+#: kernel ``(kh, kw, a, b)``: ``(b, a, kh, kw)`` in PyTorch for both)
+_PARAM_LEAF: dict[str, Callable[[np.ndarray], tuple[str, np.ndarray]]] = {
+    "kernel": lambda v: ("weight", conv_weight(v)),
+    "scale": lambda v: ("weight", v),
+    "bias": lambda v: ("bias", v),
+    "embedding": lambda v: ("weight", v),
+}
+
+
+def blocks_from_flax(variables: Mapping[str, Any]) -> dict[str, Tensor]:
+    """Flax variables of a module whose port names its submodules after the
+    Flax scopes (every block of :mod:`~adaptivepnp_sci_torch.models.blocks`,
+    :class:`~adaptivepnp_sci_torch.models.ddnet.PyramidEncoder`) -> its state
+    dict: the scope path is the module path, ``kernel`` -> ``weight`` in
+    PyTorch's layout, ``scale`` and ``embedding`` -> ``weight``, the
+    ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``."""
+    sd: dict[str, Tensor] = {}
+    for path, leaf, val in _leaves(variables["params"]):
+        name, v = _PARAM_LEAF[leaf](val.astype(np.float32))
+        sd[".".join((*path, name))] = torch.from_numpy(np.ascontiguousarray(v))
+    for path, leaf, val in _leaves(variables.get("batch_stats", {})):
+        prefix = ".".join(path)
+        sd[f"{prefix}.running_{leaf}"] = torch.from_numpy(np.array(val, np.float32))
+        sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    return sd

@@ -218,3 +218,77 @@ class DDnet(nn.Module):
         out = self.temp2(*(torch.cat([x2[i * n:(i + 1) * n], y2[i * n:(i + 1) * n]])
                            for i in range(3)))
         return (a3[0] * out[:n] + a3[1] * out[n:]).permute(0, 2, 3, 1)
+
+
+class ResidualBlockNoBN(nn.Module):
+    """``x + conv2(relu(conv1(x)))`` with a 48-channel bottleneck: the
+    reference's dormant ``ResidualBlock_noBN``
+    (``models/network_demosaicking.py:126-136``; used only by the equally
+    dormant :class:`PyramidEncoder`)."""
+
+    def __init__(self, nf: int = 64):
+        super().__init__()
+        self.conv1 = nn.Conv2d(nf, 48, 3, padding=1)
+        self.conv2 = nn.Conv2d(48, nf, 3, padding=1)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return x + self.conv2(F.relu(self.conv1(x)))
+
+
+class PyramidEncoder(nn.Module):
+    """4x-downscaling pyramid feature encoder: the reference's dormant
+    ``encoder`` (``models/network_demosaicking.py:137-182``; defined in the
+    model file, instantiated by no driver).
+
+    ``(N, H, W, 4)`` RGGB input -> ``(N, ceil(H/4), ceil(W/4), nf)``; NCHW
+    inside. Two stride-2 head stages, ``n_rb`` residual blocks, then a
+    three-level feature pyramid (1, 1/2, 1/4) merged by half-pixel bilinear
+    upsampling (``align_corners=False``) and a 7x7 fusion conv. The
+    reference's forward applies LeakyReLU(0.1) to head ``Sequential`` s that
+    already end in one, which scales negatives by 0.01: kept as it is, since
+    the double application is not idempotent. Every conv has a bias; the
+    modules are named after the JAX scopes (``conv_first01_0``, ``rbs_{i}``,
+    ...).
+    """
+
+    def __init__(self, nf: int = 64, n_rb: int = 5):
+        super().__init__()
+        self.n_rb = n_rb
+
+        def conv(cin: int, cout: int, k: int = 3, s: int = 1) -> nn.Conv2d:
+            return nn.Conv2d(cin, cout, k, stride=s, padding=k // 2)
+
+        self.conv_first01_0 = conv(4, nf * 2, s=2)
+        self.conv_first01_2 = conv(nf * 2, nf)
+        self.conv_first02_0 = conv(nf, nf * 2, s=2)
+        self.conv_first02_2 = conv(nf * 2, nf)
+        self.conv_first = conv(nf, nf)
+        for i in range(n_rb):
+            self.add_module(f"rbs_{i}", ResidualBlockNoBN(nf))
+        self.d2_conv1 = conv(nf, nf, s=2)
+        self.d2_conv2 = conv(nf, nf)
+        self.d4_conv1 = conv(nf, nf, s=2)
+        self.d4_conv2 = conv(nf, nf)
+        self.py_conv = conv(3 * nf, nf, k=7)
+
+    def forward(self, x: Tensor) -> Tensor:
+        def lrelu(v: Tensor) -> Tensor:
+            return F.leaky_relu(v, 0.1)
+
+        x = x.permute(0, 3, 1, 2)
+        x = lrelu(self.conv_first01_0(x))
+        x = lrelu(lrelu(self.conv_first01_2(x)))
+        x = lrelu(self.conv_first02_0(x))
+        x = lrelu(lrelu(self.conv_first02_2(x)))
+        fea_lr = lrelu(self.conv_first(x))
+        for i in range(self.n_rb):
+            fea_lr = getattr(self, f"rbs_{i}")(fea_lr)
+        d2 = lrelu(self.d2_conv2(lrelu(self.d2_conv1(fea_lr))))
+        d4 = lrelu(self.d4_conv2(lrelu(self.d4_conv1(d2))))
+        size = fea_lr.shape[-2:]
+
+        def up(v: Tensor) -> Tensor:
+            return F.interpolate(v, size=size, mode="bilinear", align_corners=False)
+
+        out = torch.cat([fea_lr, up(d2), up(d4)], dim=1)
+        return lrelu(self.py_conv(out)).permute(0, 2, 3, 1)

@@ -32,7 +32,6 @@ the 3B of per-window evaluation): identical math with frozen BatchNorm.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator
 
 import torch
 import torch.nn as nn
@@ -40,54 +39,14 @@ import torch.nn.functional as F
 from torch import Tensor
 from torch.utils.checkpoint import checkpoint
 
+from adaptivepnp_sci_torch.models.common import FlaxBatchNorm2d, frozen_batch_stats
 from adaptivepnp_sci_torch.ops import convpair as convpair_ops
 from adaptivepnp_sci_torch.ops import cuda_kernels
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (eps 1e-5) whose train mode is Flax's
-    ``nn.BatchNorm(momentum=0.9)``, the JAX model's: the batch statistics in
-    float32, the variance biased and computed as ``E[x^2] - E[x]^2`` (clipped
-    at 0), the output ``(x - mean) * (rsqrt(var + eps) * weight) + bias``,
-    and the running statistics moved as ``0.9 * running + 0.1 * batch`` with
-    the biased variance (PyTorch's own feeds them the unbiased one). Eval
-    mode, the parameters and the buffers are ``nn.BatchNorm2d``'s.
-
-    ``update_stats`` False (:func:`frozen_batch_stats`) normalises by the
-    batch statistics without moving the running ones."""
-
-    update_stats = True
-
-    def forward(self, x: Tensor) -> Tensor:
-        if not self.training:
-            return super().forward(x)
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        if self.update_stats:
-            with torch.no_grad():
-                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
-                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
-                self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None]
-        return (y + self.bias[None, :, None, None]).to(x.dtype)
-
-
-@contextlib.contextmanager
-def frozen_batch_stats(module: nn.Module) -> Iterator[None]:
-    """Train-mode BatchNorm inside ``module`` leaves its running statistics as
-    they are for the duration (a second forward whose statistics the JAX
-    package discards, or a recomputation in the backward pass)."""
-    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
-    before = [m.update_stats for m in bns]
-    for m in bns:
-        m.update_stats = False
-    try:
-        yield
-    finally:
-        for m, flag in zip(bns, before):
-            m.update_stats = flag
+#: the BatchNorm of FastDVDnet: Flax's convention (momentum 0.9, eps 1e-5) in
+#: train mode, ``nn.BatchNorm2d``'s in eval mode
+BatchNorm2d = FlaxBatchNorm2d
 
 
 def _conv3(in_ch: int, out_ch: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
@@ -310,3 +269,39 @@ class FastDVDnet(nn.Module):
         t1 = self._stage(self.temp1, torch.roll(x, 1, 0), x, torch.roll(x, -1, 0), sigma)
         out = self._stage(self.temp2, torch.roll(t1, 1, 0), t1, torch.roll(t1, -1, 0), sigma)
         return out.permute(0, 2, 3, 1)
+
+
+class SpatialDnCNN(nn.Module):
+    """Single-frame spatial U-Net denoiser: the reference's dormant
+    ``spatialDnCNN`` (``packages/fastdvdnet/models.py:92-144``; defined in the
+    model file but on no driver path).
+
+    The vocabulary of one :class:`DenBlock` (scopes ``inc``, ``downc0``,
+    ``downc1``, ``upc2``, ``upc1``, ``outc``): a one-frame input conv (30
+    intermediate channels), a (32, 64, 128) down/up U-Net, and the residual
+    ``in - f(in, sigma)`` in float32. ``(N, H, W, C)`` frames and a scalar or
+    ``(N,)`` sigma -> ``(N, H, W, C)``; NCHW inside.
+    """
+
+    def __init__(self, num_color_channels: int = 3,
+                 chs: tuple[int, int, int] = (32, 64, 128), dtype: torch.dtype | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.inc = InputCvBlock(1, chs[0], num_color_channels=num_color_channels, dtype=dtype)
+        self.downc0 = DownBlock(chs[0], chs[1], dtype)
+        self.downc1 = DownBlock(chs[1], chs[2], dtype)
+        self.upc2 = UpBlock(chs[2], chs[1], dtype)
+        self.upc1 = UpBlock(chs[1], chs[0], dtype)
+        self.outc = OutputCvBlock(chs[0], num_color_channels, dtype)
+
+    def forward(self, x: Tensor, sigma: Tensor | float) -> Tensor:
+        frame = x.permute(0, 3, 1, 2)
+        inp = torch.cat([frame, FastDVDnet._noise_map(frame, sigma)], dim=1)
+        if self.dtype is not None:
+            inp = inp.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        x0 = self.inc(inp)
+        x1 = self.downc0(x0)
+        x2 = self.upc2(self.downc1(x1))
+        x1 = self.upc1(x1 + x2)
+        out = self.outc(x0 + x1)
+        return (frame.float() - out.float()).permute(0, 2, 3, 1)

@@ -5,7 +5,7 @@
 * :func:`temporal_chunks`: 5-frame training windows from video arrays;
 * :func:`synthetic_video_dataset`: procedural clips from
   :mod:`adaptivepnp_sci_torch.data.synthetic`, the same numbers as the JAX
-  package for the same seed (the photograph styles are not ported yet);
+  package for the same seed;
 * :func:`load_array_dir`: the ``.npy``/``.npz`` arrays of a directory (read
   with ``np.load``; the JAX package's native prefetch ring is not ported);
 * the HDF5 patch database (needs ``h5py``; refused by name without it);
@@ -65,8 +65,9 @@ def synthetic_video_dataset(
     ``textured`` mixes in drifting gratings and rectangles (on even clip
     indices, or a coin per source video with ``source_sizes``). ``styles``,
     when given, draws each source video's scene family from ``'smooth'``,
-    ``'textured'`` and ``'leaves'``; the photograph styles ``'photo'`` and
-    ``'photos'`` are not ported yet and are refused. ``source_sizes``: each
+    ``'textured'``, ``'leaves'``, ``'photo'`` (a pan over the portrait) and
+    ``'photos'`` (either photograph under a pan + zoom + roll path; see
+    :func:`~adaptivepnp_sci_torch.data.synthetic.make_scene`). ``source_sizes``: each
     clip is a random ``size``-square crop of a larger generated video whose
     side is drawn from this tuple, ``crops_per_video`` crops per video.
     ``styles=None`` keeps the JAX package's legacy random stream (the video
@@ -74,6 +75,8 @@ def synthetic_video_dataset(
     """
     from adaptivepnp_sci_torch.data.synthetic import (
         _dead_leaves_video,
+        _photo_video,
+        _photos_video,
         _smooth_video,
         _texture_video,
     )
@@ -83,11 +86,6 @@ def synthetic_video_dataset(
         bad = [s for s in styles if s not in known]
         if bad:
             raise ValueError(f"unknown clip style(s) {bad!r}; choose from {known}")
-        photo = [s for s in styles if s in ("photo", "photos")]
-        if photo:
-            raise NotImplementedError(
-                f"clip style(s) {photo!r} (real photographs) are not ported yet; "
-                "use 'smooth', 'textured' or 'leaves'")
 
     rng = np.random.default_rng(seed)
 
@@ -95,6 +93,10 @@ def synthetic_video_dataset(
         style = styles[int(rng.integers(len(styles)))] if styles else None
         if style == "leaves":
             return _dead_leaves_video(length, s, s, rng)
+        if style == "photo":
+            return _photo_video(length, s, s, rng)
+        if style == "photos":
+            return _photos_video(length, s, s, rng)
         video = _smooth_video(length, s, s, rng)
         if style == "textured" or (style is None and textured and rng.random() < 0.5):
             video = np.clip(video + _texture_video(length, s, rng), 0, 1)

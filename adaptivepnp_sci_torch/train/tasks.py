@@ -24,7 +24,7 @@ keys.
 
 The penalties run the network again without touching the step's BatchNorm
 statistics: the Lipschitz penalty's second train-mode forward under
-:func:`~adaptivepnp_sci_torch.models.fastdvdnet.frozen_batch_stats` (JAX
+:func:`~adaptivepnp_sci_torch.models.common.frozen_batch_stats` (JAX
 discards its statistics), and the spectral and Jacobian penalties through the
 eval-mode operator with the running statistics as they stood at the start
 of the step (``torch.func.functional_call`` on a copy of the buffers, with
@@ -40,7 +40,7 @@ import torch
 import torch.nn as nn
 from torch import Tensor
 
-from adaptivepnp_sci_torch.models.fastdvdnet import frozen_batch_stats
+from adaptivepnp_sci_torch.models.common import frozen_batch_stats
 from adaptivepnp_sci_torch.ops import bayer
 from adaptivepnp_sci_torch.ops.demosaic import malvar2004
 from adaptivepnp_sci_torch.train import augment

@@ -149,8 +149,8 @@ def test_serve_matches_jax_and_survives_a_bad_file(chains):
     (["reconstruct", "--ckpt", "{dir}"], "directory"),
     (["reconstruct", "--ckpt", "auto"], "--ckpt auto"),
     (["reconstruct", "--dm-update", "--random-init"], "require --deep-demosaicking"),
-    (["synth", "--style", "photo"], "not ported yet"),
-    (["synth", "--photo-source", "street"], "not ported yet"),
+    (["reconstruct", "--ckpt", "{dir}/missing.pth"], "not found"),
+    (["reconstruct", "--ckpt", "{scene}"], "unknown checkpoint format"),
     (["reconstruct", "--random-init", "--device", "cuda"], "no CUDA device"),
 ])
 def test_refusals(runs, argv, message):
@@ -162,7 +162,7 @@ def test_refusals(runs, argv, message):
         scene = root / "refusal.mat"
         if not scene.exists():
             tmain(["synth", "--out", str(scene), "--size", "16", "--frames", "4"])
-        argv += ["--data", str(scene)]
+        argv = [a.replace("{scene}", str(scene)) for a in argv] + ["--data", str(scene)]
         if "--device" not in argv:
             argv += ["--device", "cpu"]
     else:

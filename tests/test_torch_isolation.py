@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and on
-CPU tensors its kernel wrappers run the plain versions without launching."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor PIL
+or matplotlib to make a photograph scene), and on CPU tensors its kernel
+wrappers run the plain versions without launching."""
 
 import ast
 import os
@@ -14,6 +15,9 @@ ROOT = Path(__file__).resolve().parent.parent
 
 _RUN = r"""
 import sys
+# JAX, the JAX package, PIL and matplotlib are unimportable here
+for name in ("jax", "jaxlib", "flax", "optax", "adaptivepnp_sci_tpu", "PIL", "matplotlib"):
+    sys.modules[name] = None
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -106,6 +110,29 @@ with tempfile.TemporaryDirectory() as d:
         out.getvalue()
     masked = corruption.mask_block(torch.Generator().manual_seed(0), torch.ones(1, 5, 4, 4, 3), 0.5)
     assert 0 < float((masked < 1).float().mean()) < 1
+# the remaining models and utilities, the photograph scenes and the six-scene run
+from adaptivepnp_sci_torch import run_all_scenes
+from adaptivepnp_sci_torch.models import blocks, feature, ffdnet_ipol
+from adaptivepnp_sci_torch.models.ddnet import PyramidEncoder
+from adaptivepnp_sci_torch.models.fastdvdnet import SpatialDnCNN
+from adaptivepnp_sci_torch.ops.resize import imresize
+from adaptivepnp_sci_torch.utils import image
+photo = make_scene(b=2, h=16, w=16, seed=1, style="photo", photo_source="street")
+assert photo.orig_rgb.shape == (2, 16, 16, 3)
+assert imresize(photo.orig_rgb[0], 0.5).shape == (8, 8, 3)
+assert image.rgb2ycbcr(photo.orig_rgb[0]).shape == (16, 16)
+x = torch.from_numpy(photo.orig_rgb)
+assert ffdnet_ipol.FFDNetIPOL(3, 8, 3).denoise(x, 0.1).shape == x.shape
+assert SpatialDnCNN()(x, 0.1).shape == x.shape
+assert PyramidEncoder(8, 1)(torch.rand(1, 16, 16, 4)).shape == (1, 4, 4, 8)
+assert feature.VGGFeatures(5)(x).shape == (2, 8, 8, 64)
+assert blocks.RRDB(4, 2)(torch.rand(1, 4, 8, 8)).shape == (1, 4, 8, 8)
+with tempfile.TemporaryDirectory() as d:
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = run_all_scenes.main(d, "ffd", b=2, h=16, w=16, n_meas=1, scenes=["Beauty"],
+                                   random_init=True, device="cpu")
+    assert rows[0][:3] == ("Beauty", "ffd", "photo") and os.path.exists(
+        os.path.join(d, run_all_scenes.TABLE_NAME))
 try:
     ab_convpair.main(32, 16, 1)
 except RuntimeError as err:
@@ -114,8 +141,8 @@ else:
     raise AssertionError("ab_convpair ran without a GPU")
 assert cuda_kernels.launches == {"x_update": 0, "tv_chambolle": 0, "convpair": 0}, \
     cuda_kernels.launches
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "adaptivepnp_sci_tpu"))
+bad = sorted(m for m in sys.modules if sys.modules[m] is not None and m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "optax", "adaptivepnp_sci_tpu", "PIL", "matplotlib"))
 print("FOREIGN", bad)
 """
 

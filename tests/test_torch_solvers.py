@@ -252,8 +252,10 @@ def test_unported_options_raise():
         cfg = tadmm.ADMMConfig(sigma=(0.1,), iters=(1,), **{"denoiser": "tv", **kw})
         with pytest.raises(NotImplementedError):
             tadmm.two_stage_admm(sc.meas, sc.mask, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tmake_scene(b=2, h=16, w=16, style="photo")
+    # the photograph styles are ported; an unknown style is refused
+    assert tmake_scene(b=2, h=16, w=16, style="photo").meas.shape == (16, 16)
+    with pytest.raises(ValueError):
+        tmake_scene(b=2, h=16, w=16, style="marble")
     # the guard, relaxation, closed form and aliasing modes are ported
     for kw in ({"select_best": True}, {"select_best": True, "select_best_holdout": 0.05},
                {"denoiser_relax": 0.5}, {"faithful_aliasing": True}):

@@ -228,9 +228,12 @@ def test_synthetic_video_dataset_matches_jax_bit_for_bit(kw):
 
 
 def test_photo_styles_and_unknown_styles_are_refused():
+    """The photograph clip styles are ported (bit for bit JAX's clips, more
+    cases in ``test_torch_photos.py``); an unknown style is refused."""
     for style in ("photo", "photos"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tdatasets.synthetic_video_dataset(2, styles=("smooth", style))
+        kw = dict(n_clips=2, length=2, size=16, seed=1, styles=("smooth", style))
+        np.testing.assert_array_equal(tdatasets.synthetic_video_dataset(**kw),
+                                      datasets.synthetic_video_dataset(**kw))
     with pytest.raises(ValueError):
         tdatasets.synthetic_video_dataset(2, styles=("marble",))
 
