@@ -10,8 +10,9 @@ denoiser's state dict, where the port's solvers say ``params=``) and add
 with TF32 off.
 
 Random draws: the JAX package passes ``PRNGKey(t)`` to measurement ``t``; the
-port draws the adaptation noise and crop offsets from one ``torch.Generator``
-carried through the measurements, so the numbers differ. The held-out pixels
+port draws the adaptation noise and crop offsets from one CPU
+``torch.Generator`` carried through the measurements (the same draws on any
+device), so the numbers differ from JAX's. The held-out pixels
 of :func:`holdout_cv_residuals` come from
 :func:`adaptivepnp_sci_torch.solvers.two_stage_admm.holdout_mask`, the
 guard's mask function.
@@ -312,13 +313,13 @@ def run_reconstruction(
     new Adam for every step.
 
     The adaptation's random draws (input noise, crop offsets) come from one
-    ``torch.Generator`` on ``device``, seeded with 0 and carried through all
-    measurements in turn; the JAX package instead passes ``PRNGKey(t)`` to
-    measurement ``t``.
+    CPU ``torch.Generator``, seeded with 0 and carried through all
+    measurements in turn, so a run on the card draws what a run on the CPU
+    draws; the JAX package instead passes ``PRNGKey(t)`` to measurement ``t``.
     """
     if config is None:
         config = admm_config_for(scene.name, denoiser, deep_demosaicking, update)
-    generator = torch.Generator(device=device).manual_seed(0)
+    generator = torch.Generator().manual_seed(0)
     initial_variables = variables
     opt_state = None
 

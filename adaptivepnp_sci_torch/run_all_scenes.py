@@ -82,13 +82,12 @@ def _make_scene_data(name: str, b: int, h: int, w: int, n_meas: int):
     )
 
 
-def _build_models(modes: list[str], random_init: bool, bf16: bool = True):
+def _build_models(modes: list[str], random_init: bool):
     """``({denoiser: (prior, variables)}, DDnet or None, its variables)`` for
     ``modes``, as the command line builds them: the default checkpoints
     (``weights/fastdvd.npz``, ``weights/ddnet.npz``; FFDNet's
     ``weights/ffdnet_color.pth``), or with ``random_init`` PyTorch's default
-    initialisation under a fixed seed. FastDVDnet and DDnet in bf16 unless
-    ``bf16`` is False."""
+    initialisation under a fixed seed. FastDVDnet and DDnet in bf16."""
     from adaptivepnp_sci_torch.cli import REPO_WEIGHTS, _build_denoiser, _load_weights, _seeded_init
     from adaptivepnp_sci_torch.models import convert
     from adaptivepnp_sci_torch.models.ddnet import DDnet
@@ -98,17 +97,32 @@ def _build_models(modes: list[str], random_init: bool, bf16: bool = True):
         d = MODES[m][0]
         if d not in priors:
             _, prior, variables = _build_denoiser(d, None, random_init=random_init,
-                                                  bf16=bf16 and d == "fastdvd")
+                                                  bf16=d == "fastdvd")
             priors[d] = (prior, variables)
     dd = dd_vars = None
     if any(MODES[m][1] for m in modes):
         # bf16 U-Nets: the JAX package measured the same PSNR/SSIM, 21 % faster
-        dd = DDnet(dtype=torch.bfloat16 if bf16 else None)
+        dd = DDnet(dtype=torch.bfloat16)
         dd_vars = _load_weights(None, convert.load_ddnet, convert.ddnet_from_flax,
                                 lambda: _seeded_init(DDnet, 1),
                                 defaults=(str(REPO_WEIGHTS / "ddnet.npz"),),
                                 random_init=random_init)
     return priors, dd, dd_vars
+
+
+def guard_picks(out_dir: str, name: str, mode: str, b: int) -> list[int]:
+    """Per measurement, the choice of one row read back from the files that
+    :func:`main` wrote into ``out_dir``: 0 for the warm start, ``k + 1`` for
+    iterate ``k`` (the iterate whose traced PSNR is the result's). ``b`` is
+    the number of frames a measurement."""
+    import scipy.io as sio
+
+    res = sio.loadmat(os.path.join(out_dir, f"{name}8_online_{mode}.mat"))
+    warm = sio.loadmat(os.path.join(out_dir, f"_Admm_tv_{name}8.mat"))["v_Admm_tv_denoise"]
+    x, psnr, trace = res["v_recon_bayer"], res["psnr"], np.atleast_2d(res["psnr_all_iter"])
+    return [0 if np.array_equal(x[..., b * t:b * (t + 1)], warm[..., b * t:b * (t + 1)])
+            else 1 + int(np.argmin(np.abs(trace[t] - psnr[t].mean())))
+            for t in range(psnr.shape[0])]
 
 
 def main(out_dir: str = "results/scenes", mode: str = "ffd", b: int = 8,

@@ -132,7 +132,8 @@ DM_UPDATE = dict(lr=1e-6, update_per_iter=1)
 #: covers a group), 40 TV proxes, and 8 conv pairs per denoiser call of each
 #: tile, 16 x 36 x 8
 TILED = dict(size=2048, tile=512, tile_chunk=2)
-TILED_LAUNCHES = {2: {"x_update": 40 + 8 * 36, "tv_chambolle": 40, "convpair": 16 * 36 * 8}}
+TILED_LAUNCHES = {2: {"x_update": 40 + 8 * 36, "tv_chambolle": 40, "convpair": 16 * 36 * 8},
+                  4: {"x_update": 40 + 4 * 36, "tv_chambolle": 40, "convpair": 16 * 36 * 8}}
 #: the sequence path: the FFDNet flagship over T = 2 measurements of one
 #: scene, the weights and one Adam carried; both GAP-TV warm starts counted
 SEQUENCE_LAUNCHES = {"x_update": 2 * 40 + 2 * 25, "tv_chambolle": 2 * 40, "convpair": 0}
@@ -231,9 +232,8 @@ TRAIN_LAUNCHES = {
 #: photograph stand-ins at 64x64x8 over 2 measurements, float32 (FastDVDnet and
 #: DDnet from ``weights/``, FFDNet from PyTorch's seeded init), held to
 #: ``PIPELINE_PARITY_BAR`` in warm and final dB and in x, with the same picks
-#: (FastDVDnet's adaptation noise off: ``run_reconstruction`` draws it from a
-#: generator on the solve's device, and the card's stream is not the CPU's);
-#: then every scene in every mode at 512x512x8, one measurement (the script's
+#: (FastDVDnet's adaptation noise on: ``run_reconstruction`` draws it from a
+#: CPU generator, the same draws on both sides); then every scene in every mode at 512x512x8, one measurement (the script's
 #: two cut to one for time: the carry across measurements is the ``cli``
 #: phase's and the CPU tests'), FastDVDnet and DDnet in bf16 on ``weights/``,
 #: the FFDNet modes with ``random_init`` (no FFDNet checkpoint exists, so their
@@ -264,20 +264,6 @@ def scenes_launches(name: str, mode: str, n_meas: int, lowp: bool) -> dict:
     pairs = 8 * iters if lowp and denoiser == "fastdvd" else 0
     return {"x_update": n_meas * (iters + guard), "tv_chambolle": n_meas * guard,
             "convpair": n_meas * pairs}
-
-
-def scene_pick(out_dir: Path, name: str, mode: str, b: int) -> list[int]:
-    """Per measurement, the row's pick read back from its files: 0 for the
-    warm start, k + 1 for iterate k (the iterate whose traced PSNR is the
-    result's)."""
-    import scipy.io as sio
-
-    res = sio.loadmat(str(out_dir / f"{name}8_online_{mode}.mat"))
-    warm = sio.loadmat(str(out_dir / f"_Admm_tv_{name}8.mat"))["v_Admm_tv_denoise"]
-    x, psnr, trace = res["v_recon_bayer"], res["psnr"], np.atleast_2d(res["psnr_all_iter"])
-    return [0 if np.array_equal(x[..., b * t:b * (t + 1)], warm[..., b * t:b * (t + 1)])
-            else 1 + int(np.argmin(np.abs(trace[t] - psnr[t].mean())))
-            for t in range(psnr.shape[0])]
 
 
 class SmokeFailure(RuntimeError):
@@ -1291,54 +1277,56 @@ def main(argv: list[str]) -> int:
 
         admm_mod.run_admm = timed_run_admm
         try:
-            # one tile_chunk: a second run with 4 measured within 0.3 % of it on an
-            # H100 (21.97 s against 22.02 s a snapshot) and was cut for the script's time
-            chunk = TILED["tile_chunk"]
-            secs, groups = [], []
-            for rep in range(3):  # one warm-up first
-                group_ms.clear()
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                cuda_kernels.reset_launches()
-                t0 = time.perf_counter()
-                warm, res = snapshot(chunk)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                counts = dict(cuda_kernels.launches)
-                require(counts == TILED_LAUNCHES[chunk],
-                        f"tiled chunk {chunk}: launches {counts}")
-                by_shape = dict(cuda_kernels.convpair_launches)
-                require(by_shape == {shp: 16 * 36 * 4 for shp in CONVPAIR_MAIN_SHAPES.values()},
-                        f"tiled chunk {chunk}: conv pair launches {by_shape}")
-                report.setdefault("launches_tiled", counts)
-                report.setdefault("launches_convpair_tiled", by_shape)
-                if rep:
-                    secs.append(dt)
-                    groups.append(list(group_ms))
-            peak = torch.cuda.max_memory_allocated()
-            require(tuple(res.x_bayer.shape) == (8, size, size)
-                    and tuple(res.x_rgb.shape) == (8, size, size, 3), "tiled: shapes")
-            require(bool(torch.isfinite(res.x_bayer).all() & torch.isfinite(res.x_rgb).all()),
-                    f"tiled chunk {chunk}: non-finite output")
-            require(set(res.variables) == set(fastdvd_params)
-                    and res.variables["temp1.inc.convblock.0.weight"].shape
-                    == fastdvd_params["temp1.inc.convblock.0.weight"].shape,
-                    "tiled: the shared weights are not one copy")
-            moved = max(float((res.variables[k].cpu() - fastdvd_params[k]).abs().max())
-                        for k in fastdvd_params if k.endswith("weight"))
-            require(moved > 0, "tiled: the adaptation did not move the weights")
-            med = statistics.median(secs)
-            warm_psnr = warm.psnr_per_frame.mean().item()
-            emit("tiled", shape=[8, size, size], tile=tile, overlap=0, tile_chunk=chunk,
-                 groups=16 // chunk, mode="bf16 FastDVDnet (remat off), adaptation shared "
-                 "over tiles", weights="weights/fastdvd.npz",
-                 seconds_per_snapshot=med, seconds_runs=secs, frames_per_s=8 / med,
-                 group_ms=groups[-1], group_ms_median=statistics.median(groups[-1]),
-                 warm_start_psnr_db=warm_psnr, psnr_db=res.psnr_per_frame.mean().item(),
-                 ssim=res.ssim_per_frame.mean().item(),
-                 gain_over_warm_start_db=res.psnr_per_frame.mean().item() - warm_psnr,
-                 max_abs_weight_change=moved, peak_mem_bytes=peak,
-                 launches_per_snapshot=counts, **card)
+            for chunk in (TILED["tile_chunk"], 4):
+                secs, groups = [], []
+                # tile_chunk 2: one warm-up, then two timed runs; 4: one timed
+                # run, after the runs of 2 have warmed the same kernels and models
+                reps = 3 if chunk == TILED["tile_chunk"] else 1
+                for rep in range(reps):
+                    group_ms.clear()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    cuda_kernels.reset_launches()
+                    t0 = time.perf_counter()
+                    warm, res = snapshot(chunk)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    counts = dict(cuda_kernels.launches)
+                    require(counts == TILED_LAUNCHES[chunk],
+                            f"tiled chunk {chunk}: launches {counts}")
+                    by_shape = dict(cuda_kernels.convpair_launches)
+                    require(by_shape == {shp: 16 * 36 * 4 for shp in CONVPAIR_MAIN_SHAPES.values()},
+                            f"tiled chunk {chunk}: conv pair launches {by_shape}")
+                    if chunk == TILED["tile_chunk"]:
+                        report.setdefault("launches_tiled", counts)
+                        report.setdefault("launches_convpair_tiled", by_shape)
+                    if rep or reps == 1:
+                        secs.append(dt)
+                        groups.append(list(group_ms))
+                peak = torch.cuda.max_memory_allocated()
+                require(tuple(res.x_bayer.shape) == (8, size, size)
+                        and tuple(res.x_rgb.shape) == (8, size, size, 3), "tiled: shapes")
+                require(bool(torch.isfinite(res.x_bayer).all() & torch.isfinite(res.x_rgb).all()),
+                        f"tiled chunk {chunk}: non-finite output")
+                require(set(res.variables) == set(fastdvd_params)
+                        and res.variables["temp1.inc.convblock.0.weight"].shape
+                        == fastdvd_params["temp1.inc.convblock.0.weight"].shape,
+                        "tiled: the shared weights are not one copy")
+                moved = max(float((res.variables[k].cpu() - fastdvd_params[k]).abs().max())
+                            for k in fastdvd_params if k.endswith("weight"))
+                require(moved > 0, "tiled: the adaptation did not move the weights")
+                med = statistics.median(secs)
+                warm_psnr = warm.psnr_per_frame.mean().item()
+                emit("tiled", shape=[8, size, size], tile=tile, overlap=0, tile_chunk=chunk,
+                     groups=16 // chunk, mode="bf16 FastDVDnet (remat off), adaptation shared "
+                     "over tiles", weights="weights/fastdvd.npz",
+                     seconds_per_snapshot=med, seconds_runs=secs, frames_per_s=8 / med,
+                     group_ms=groups[-1], group_ms_median=statistics.median(groups[-1]),
+                     warm_start_psnr_db=warm_psnr, psnr_db=res.psnr_per_frame.mean().item(),
+                     ssim=res.ssim_per_frame.mean().item(),
+                     gain_over_warm_start_db=res.psnr_per_frame.mean().item() - warm_psnr,
+                     max_abs_weight_change=moved, peak_mem_bytes=peak,
+                     launches_per_snapshot=counts, **card)
         finally:
             admm_mod.run_admm = run_admm
         with torch.no_grad():
@@ -1827,20 +1815,21 @@ def main(argv: list[str]) -> int:
             finally:
                 pipelines.run_warm_start, pipelines.run_reconstruction = originals
 
-        def run_mode(out_dir, mode, device, sc_kw, random_init, bf16=True, noise=True):
+        def run_mode(out_dir, mode, device, sc_kw, random_init, bf16=True):
             """``run_all_scenes.main`` for one mode; FastDVDnet and DDnet in
-            float32 when ``bf16`` is False, FastDVDnet's adaptation noise off
-            when ``noise`` is False."""
+            float32 when ``bf16`` is False."""
             build = scenes_run._build_models
 
-            def models(modes, random_init):
-                priors, dd, dd_vars = build(modes, random_init, bf16=bf16)
-                if not noise:
-                    priors = {d: (p._replace(adapt_noise_std=0.0), v)
-                              for d, (p, v) in priors.items()}
-                return priors, dd, dd_vars
+            def models(run_modes, random_init):
+                # the command line's float32 FastDVDnet, on the same weights
+                priors, dd, dd_vars = build(run_modes, random_init)
+                if "fastdvd" in priors:
+                    priors["fastdvd"] = (fastdvd_prior(FastDVDnet(**modes["fp32"])),
+                                         priors["fastdvd"][1])
+                return priors, None if dd is None else DDnet(), dd_vars
 
-            scenes_run._build_models = models
+            if not bf16:
+                scenes_run._build_models = models
             try:
                 with contextlib.redirect_stdout(io.StringIO()):
                     return scenes_run.main(str(out_dir), mode, random_init=random_init,
@@ -1861,7 +1850,7 @@ def main(argv: list[str]) -> int:
                     with counted_scenes(logs[mode] if device == "cuda" else []):
                         rows[device, mode] = run_mode(Path(d) / device / mode, mode, device,
                                                       sc_kw, random_init=mode == "ffd",
-                                                      bf16=False, noise=False)
+                                                      bf16=False)
                     emit("scenes_parity_run", device=device, mode=mode,
                          seconds=time.perf_counter() - t0)
             for mode in sp["modes"]:
@@ -1874,7 +1863,8 @@ def main(argv: list[str]) -> int:
                     x = {dev: sio.loadmat(str(Path(d) / dev / mode / f"{name}8_online_{mode}.mat"))
                          ["v_recon_bayer"] for dev in ("cpu", "cuda")}
                     # the guard's picks (every FastDVDnet row is guarded)
-                    picks = {dev: scene_pick(Path(d) / dev / mode, name, mode, sp["b"])
+                    picks = {dev: scenes_run.guard_picks(str(Path(d) / dev / mode), name, mode,
+                                                         sp["b"])
                              if mode.startswith("fastdvd") else None for dev in ("cpu", "cuda")}
                     want = scenes_launches(name, mode, sp["n_meas"], lowp=False)
                     res = {"scene": name, "mode": mode,
