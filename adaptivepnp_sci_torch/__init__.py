@@ -12,7 +12,12 @@ tables), ``ops`` (with Menon 2007 demosaicking and the patch ops),
 ``data`` (synthetic scenes and the ``.mat`` scene and result files),
 ``utils.image`` (host PSNR/SSIM), ``pipelines`` (the drivers over a
 multi-measurement scene), ``train`` (offline training of the three denoisers,
-:class:`Trainer`) and ``cli`` (``python -m adaptivepnp_sci_torch.cli``).
+:class:`Trainer`), ``cli`` (``python -m adaptivepnp_sci_torch.cli``),
+``parallel`` (the ``(data, frame)`` mesh over ``torch.distributed``, ring
+halos, the frame-sharded prior, data-parallel training; checked across
+processes by ``python -m adaptivepnp_sci_torch.multihost_validation``),
+``data.native_loader`` and ``data.video`` (the native ``.npy`` prefetch ring,
+cv2 video ingestion) and ``utils.profiling`` (``torch.profiler`` traces).
 Plain tensor code is PyTorch; the repository's three Pallas kernels (the
 x-update and the TV prox of the flagship path, the fused conv pair of the
 FastDVDnet prior's bf16 mode) are hand-written CUDA kernels for Hopper

@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 from torch import Tensor
 
-from adaptivepnp_sci_torch.adapt.online import backward_mean
+from adaptivepnp_sci_torch.adapt.online import ItemShard, backward_mean
 from adaptivepnp_sci_torch.ops import bayer
 from adaptivepnp_sci_torch.solvers.priors import module_copy, window_indices
 
@@ -32,14 +32,18 @@ def dm_consistency_loss(net: nn.Module, mosaic_frames: Tensor, window: int = 5) 
 
 def dm_adam_steps(net: nn.Module, opt: torch.optim.Adam,
                   loss_fns: Sequence[Callable[[], Tensor]], lr: float, steps: int,
-                  fresh_opt: bool) -> tuple[torch.optim.Adam, Tensor]:
+                  fresh_opt: bool, shard: ItemShard | None = None
+                  ) -> tuple[torch.optim.Adam, Tensor]:
     """``steps`` Adam steps on the mean of ``loss_fns`` (one closure per
     measurement that shares the update; see
     :func:`~adaptivepnp_sci_torch.adapt.online.backward_mean`) over all
     parameters of ``net``, with gradients on even inside the caller's
     ``no_grad``; with ``fresh_opt`` a new Adam replaces ``opt`` before every
-    step. Returns the optimizer last used and the loss of the last step,
-    before its update."""
+    step. With ``shard`` the measurements are this rank's share of a group
+    spread over ranks: the mean runs over the whole group and the gradients
+    are summed over its ranks. Returns the optimizer last used and the loss
+    of the last step (this rank's share of it with ``shard``), before its
+    update."""
     params = list(net.parameters())
     loss = torch.zeros((), device=params[0].device)
     with torch.enable_grad():
@@ -47,7 +51,9 @@ def dm_adam_steps(net: nn.Module, opt: torch.optim.Adam,
             if fresh_opt:
                 opt = torch.optim.Adam(params, lr=lr)
             net.zero_grad(set_to_none=True)
-            loss = backward_mean(loss_fns)
+            loss = backward_mean(loss_fns, None if shard is None else shard.total)
+            if shard is not None:
+                shard.all_reduce([p.grad for p in params if p.grad is not None])
             opt.step()
     net.zero_grad(set_to_none=True)
     return opt, loss.detach()

@@ -17,6 +17,11 @@ caller's module.
 Several measurements (the tiles of one scene) can share one adaptation: the
 loss is then the mean of their per-item losses, whose gradient is the mean of
 the per-item gradients that the JAX package ``pmean``-s over its tile axis.
+Those items can also be spread over ranks (:class:`ItemShard`): each rank
+divides its items' losses by the count of all of them and the gradients are
+summed over the ranks, and every rank makes the draws of all the items, in
+item order, and keeps its own, so each item draws what it draws in one
+process.
 """
 
 from __future__ import annotations
@@ -199,6 +204,21 @@ def crop_offsets(generator: torch.Generator, h: int, w: int, crop: int) -> tuple
     return int(oy) * 2, int(ox) * 2
 
 
+@dataclass(frozen=True)
+class ItemShard:
+    """This rank's share of items that share one adaptation: items ``start``
+    to ``start + n`` of ``total``, the rest on other ranks. ``all_reduce``
+    sums a list of tensors in place over the ranks that share the items."""
+
+    start: int
+    total: int
+    all_reduce: Callable[[list[Tensor]], None]
+
+    def local(self, t: Tensor, n: int) -> Tensor:
+        """This rank's ``n`` items of ``t``, whose leading axis holds all."""
+        return t[self.start:self.start + n]
+
+
 def carried_adam(net: nn.Module, adapt_cfg: AdaptConfig,
                  opt_state: Mapping[str, Any] | None = None) -> torch.optim.Adam | None:
     """The Adam that ``fresh_opt_per_trigger=False`` carries: over every
@@ -214,11 +234,12 @@ def carried_adam(net: nn.Module, adapt_cfg: AdaptConfig,
     return opt
 
 
-def backward_mean(losses: Sequence[Callable[[], Tensor]]) -> Tensor:
+def backward_mean(losses: Sequence[Callable[[], Tensor]], count: int | None = None) -> Tensor:
     """Accumulate the gradient of the mean of ``losses`` (closures), one
     loss's graph at a time so that peak memory is that of one; returns the
-    mean loss, detached."""
-    n = len(losses)
+    mean loss, detached. ``count``: the number of losses the mean runs over,
+    when some of them are on other ranks (:class:`ItemShard`; None: these)."""
+    n = len(losses) if count is None else count
     total = None
     for loss_fn in losses:
         loss = loss_fn()
@@ -245,7 +266,12 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
     generator's device (so a CPU generator gives the same draw wherever the
     solver runs). With ``prior.adapt_mask`` it then corrupts the input
     (:func:`mask_input`), and with ``adapt_cfg.crop`` draws each item's crop
-    window from ``generator`` (:func:`crop_offsets`)."""
+    window from ``generator`` (:func:`crop_offsets`).
+
+    ``shard`` (:class:`ItemShard`): the ``N`` items are this rank's share of
+    a group spread over ranks; the draws are made for the whole group and
+    the gradients summed over its ranks after each backward. A prior with
+    ``reduce_grads`` (frames spread over ranks) sums its gradients first."""
     check_adapt_supported(prior, adapt_cfg)
     stages = resolve_stages(adapt_cfg)
     filters = adapt_cfg.trainable_filter
@@ -254,18 +280,32 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
 
     def adapt(net: nn.Module, rgb_in: Tensor, sigma: Tensor, y_p: Tensor, phi_p: Tensor,
               y_f: Tensor, phi_f: Tensor, generator: torch.Generator | None = None,
-              opt: torch.optim.Adam | None = None) -> None:
+              opt: torch.optim.Adam | None = None, shard: ItemShard | None = None) -> None:
         if not fresh and opt is None:
             raise ValueError("fresh_opt_per_trigger=False needs the carried Adam (carried_adam)")
+        if shard is not None and rgb_in.dim() != 5:
+            raise ValueError("an item shard needs the item axis (N, B, H, W, 3)")
+        n_local = rgb_in.shape[0]
         if prior.adapt_noise_std > 0:
             if generator is None:
                 raise ValueError("the adaptation noise needs a torch.Generator")
-            noise = torch.randn(rgb_in.shape, generator=generator, dtype=rgb_in.dtype,
+            shape = rgb_in.shape if shard is None else (shard.total, *rgb_in.shape[1:])
+            noise = torch.randn(shape, generator=generator, dtype=rgb_in.dtype,
                                 device=generator.device)
+            if shard is not None:
+                noise = shard.local(noise, n_local)
             rgb_in = rgb_in + prior.adapt_noise_std * noise.to(rgb_in.device)
         if prior.adapt_mask is not None:
             # the reference's masked-input ablation (gen_masked_data)
-            rgb_in = mask_input(generator, rgb_in, prior.adapt_mask)
+            if shard is None:
+                rgb_in = mask_input(generator, rgb_in, prior.adapt_mask)
+            else:
+                # every item's mask in item order; the other ranks' items'
+                # masks are drawn on this rank's first item and dropped
+                masked = [mask_input(generator, rgb_in[i - shard.start]
+                                     if 0 <= i - shard.start < n_local else rgb_in[0],
+                                     prior.adapt_mask) for i in range(shard.total)]
+                rgb_in = shard.local(torch.stack(masked), n_local)
         rgb_in = rgb_in.detach()
         items = ([(rgb_in, y_p, phi_p, y_f, phi_f)] if rgb_in.dim() == 4 else
                  [(rgb_in[i], y_p[i], phi_p[i] if phi_f.dim() == 4 else phi_p, y_f[i],
@@ -278,8 +318,11 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
             h, w = phi_f.shape[-2:]
             check_crop(crop, h, w)
             cropped = []
-            for rgb_i, _, _, y_i, phi_i in items:
-                oy, ox = crop_offsets(generator, h, w, crop)
+            offsets = [crop_offsets(generator, h, w, crop)
+                       for _ in range(len(items) if shard is None else shard.total)]
+            if shard is not None:
+                offsets = offsets[shard.start:shard.start + n_local]
+            for (rgb_i, _, _, y_i, phi_i), (oy, ox) in zip(items, offsets):
                 win = (slice(oy, oy + crop), slice(ox, ox + crop))
                 y_c, phi_c = y_i[win], phi_i[(slice(None), *win)]
                 cropped.append((rgb_i[(slice(None), *win)], bayer.pack(y_c), bayer.pack(phi_c),
@@ -299,7 +342,12 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
                         group["lr"] = lr_i
                 for _ in range(n_i):
                     net.zero_grad(set_to_none=True)
-                    backward_mean(losses)
+                    backward_mean(losses, None if shard is None else shard.total)
+                    grads = [p.grad for p in trainable if p.grad is not None]
+                    if prior.reduce_grads is not None:
+                        prior.reduce_grads(grads)
+                    if shard is not None:
+                        shard.all_reduce(grads)
                     if not fresh:
                         for (_, p), keep in zip(named, on):
                             if not keep or p.grad is None:

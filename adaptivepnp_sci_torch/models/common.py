@@ -7,13 +7,14 @@ offset ``(i, j)`` of channel ``c``, the ordering of the JAX helpers.
 ``upsample_bilinear_align_corners`` is ``nn.UpsamplingBilinear2d``'s
 arithmetic, which the JAX helper spells out by hand. :class:`FlaxBatchNorm2d`
 is the one BatchNorm of the port's models: Flax's ``nn.BatchNorm`` in train
-mode, ``nn.BatchNorm2d`` in eval mode.
+mode (over the global batch of several ranks with :func:`sync_batch_stats`),
+``nn.BatchNorm2d`` in eval mode.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator
+from typing import Callable, Iterator
 
 import torch
 import torch.nn as nn
@@ -33,9 +34,17 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     Eval mode, the parameters and the buffers are ``nn.BatchNorm2d``'s.
 
     ``update_stats`` False (:func:`frozen_batch_stats`) normalises by the
-    batch statistics without moving the running ones."""
+    batch statistics without moving the running ones.
+
+    ``stats_reduce`` (:func:`sync_batch_stats`; None: off) is the
+    data-parallel mode: it maps this rank's ``(2, C)`` stack of ``E[x]`` and
+    ``E[x^2]`` to those of the global batch (a differentiable all-reduce
+    mean over the ranks), so train mode normalises by, and moves the
+    running statistics with, the global batch's statistics, as the JAX
+    package's sharded batch does."""
 
     update_stats = True
+    stats_reduce: Callable[[Tensor], Tensor] | None = None
 
     def __init__(self, num_features: int, flax_momentum: float = 0.9, eps: float = 1e-5,
                  affine: bool = True):
@@ -47,7 +56,10 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        sq = (xf * xf).mean(dim=(0, 2, 3))
+        if self.stats_reduce is not None:
+            mean, sq = self.stats_reduce(torch.stack([mean, sq])).unbind(0)
+        var = torch.clamp(sq - mean * mean, min=0.0)
         if self.update_stats:
             m = self.flax_momentum
             with torch.no_grad():
@@ -77,6 +89,15 @@ def frozen_batch_stats(module: nn.Module) -> Iterator[None]:
     finally:
         for m, flag in zip(bns, before):
             m.update_stats = flag
+
+
+def sync_batch_stats(module: nn.Module, reduce: Callable[[Tensor], Tensor] | None) -> None:
+    """Put every :class:`FlaxBatchNorm2d` of ``module`` in data-parallel mode
+    with ``reduce`` (the global mean of a rank's statistics), or back to
+    per-rank statistics with None."""
+    for m in module.modules():
+        if isinstance(m, FlaxBatchNorm2d):
+            m.stats_reduce = reduce
 
 
 def space_to_depth(x: Tensor, r: int = 2) -> Tensor:

@@ -37,6 +37,10 @@ class Prior(NamedTuple):
         adaptation noise.
       apply_adapt: optional memory-bounded variant of ``apply`` used inside
         the adaptation gradient (None = ``apply``).
+      reduce_grads: for a prior whose ``apply`` spreads the frames over
+        ranks, the in-place sum of the parameters' gradients over them, run
+        after each adaptation backward (None: one rank holds the whole
+        gradient).
     """
 
     name: str
@@ -46,6 +50,7 @@ class Prior(NamedTuple):
     adapt_noise_std: float = 0.0
     adapt_mask: tuple[str, float] | None = None
     apply_adapt: Callable[[nn.Module, Tensor, Tensor], Tensor] | None = None
+    reduce_grads: Callable[[list[Tensor]], None] | None = None
 
 
 def _apply_module(net: nn.Module, rgb: Tensor, sigma: Tensor) -> Tensor:

@@ -20,7 +20,9 @@ measurement to measurement), :func:`two_stage_admm_batched` (independent
 measurements) and :func:`two_stage_admm_tiled` (one oversized measurement cut
 into tiles that share one adaptation). Options of the JAX solver outside that
 subset raise ``NotImplementedError`` (:func:`check_supported`); none is
-silently ignored. The tiled driver has no ``mesh``: one card runs the tiles.
+silently ignored. The tiled and batched drivers take a ``mesh``
+(:mod:`adaptivepnp_sci_torch.parallel`): their tiles or measurements spread
+over the ranks of its ``data`` axis.
 
 Several measurements run in lockstep along a leading item axis
 (:func:`run_admm`): the x-update kernel takes all items in one launch, the
@@ -50,6 +52,7 @@ from torch import Tensor
 from adaptivepnp_sci_torch.adapt.ddnet_online import dm_adam_steps
 from adaptivepnp_sci_torch.adapt.online import (
     AdaptConfig,
+    ItemShard,
     carried_adam,
     check_adapt_supported,
     draws_randoms,
@@ -59,6 +62,7 @@ from adaptivepnp_sci_torch.adapt.online import (
 from adaptivepnp_sci_torch.ops import bayer, cuda_kernels, demosaic, metrics, physics
 from adaptivepnp_sci_torch.ops.menon2007 import menon2007
 from adaptivepnp_sci_torch.ops.patches import crop_overlapping, crop_patches, stitch_patches
+from adaptivepnp_sci_torch.parallel.mesh import Mesh, all_reduce_tensors, gather
 from adaptivepnp_sci_torch.solvers.gap_tv import GapTVConfig, _gap_tv_packed, as_f32
 from adaptivepnp_sci_torch.solvers.priors import (
     Prior,
@@ -166,10 +170,10 @@ class DmState:
     def demosaic(self, mosaic_frames: Tensor) -> Tensor:
         return self.spec.apply(self.net, mosaic_frames)
 
-    def update(self, mosaic_frames: Tensor) -> None:
+    def update(self, mosaic_frames: Tensor, shard: ItemShard | None = None) -> None:
         """``update_per_iter`` self-consistency Adam steps on ``mosaic_frames``
         ``(N, B, H, W)``: one update shared by the ``N`` measurements, on the
-        mean of their losses."""
+        mean of their losses (over the whole group of a ``shard``)."""
         def loss(frames: Tensor) -> Callable[[], Tensor]:
             def fn() -> Tensor:
                 out = self.demosaic(frames)
@@ -178,7 +182,7 @@ class DmState:
 
         self.opt, _ = dm_adam_steps(self.net, self.opt, [loss(f) for f in mosaic_frames],
                                     self.spec.lr, self.spec.update_per_iter,
-                                    self.spec.fresh_opt)
+                                    self.spec.fresh_opt, shard)
 
 
 def check_supported(config: ADMMConfig, prior: Prior | None = None,
@@ -257,7 +261,8 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
              y_full: Tensor, phi_full: Tensor, x0: Tensor, orig: Tensor | None,
              generator: torch.Generator | None = None, demosaic_fn: Callable | None = None,
              dm: DmState | None = None, opt: torch.optim.Adam | None = None,
-             pooled: bool = True) -> tuple[Tensor, Tensor, Tensor, Tensor | None]:
+             pooled: bool = True, shard: ItemShard | None = None
+             ) -> tuple[Tensor, Tensor, Tensor, Tensor | None]:
     """The whole sigma schedule for ``N`` measurements in lockstep, from the
     packed warm starts ``x0 (N, B, 4, h, w)``, with ``y_full (N, H, W)``,
     ``phi_full`` one ``(B, H, W)`` shared by all items or ``(N, B, H, W)``,
@@ -272,7 +277,10 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
     ``pooled`` (the tiles of one scene): the items share one adaptation (the
     mean of their losses) and one ``select_best`` pick (the mean of their
     residuals). Otherwise (a batch) each item picks its own iterate, and
-    adaptation is refused for more than one item.
+    adaptation is refused for more than one item. ``shard``: the pooled
+    items are this rank's share of a group spread over ranks; the
+    adaptations' draws and gradients and the pick's mean residual then span
+    the whole group, so every rank takes the same iterate.
 
     Returns ``(theta, xhat, trace, resid_trace)``: the packed final (or, with
     ``select_best``, chosen) theta ``(N, B, 4, h, w)``, its RGB cube (zeros
@@ -329,6 +337,10 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
                              - y_true_p[i]) ** 2 * hold_p) / hold_n for i in range(n_items)]
         if not pooled:
             return torch.stack(rs)
+        if shard is not None:
+            total = torch.stack(rs).sum()
+            shard.all_reduce([total])
+            return total / shard.total
         return rs[0] if n_items == 1 else torch.stack(rs).mean()
 
     def cand0_resid(x0: Tensor) -> Tensor:
@@ -413,7 +425,7 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha)
         xb_full = bayer.unpack(x + b / rho)  # (N, B, H, W)
         if dm is not None:
-            dm.update(xb_full)
+            dm.update(xb_full, shard)
             x_rgb = _per_item(dm.demosaic, xb_full)
         elif config.closed_form_demosaic and k > 0:
             num = (rho * bayer.embed_rgb(bayer.unpack(x)) + bayer.embed_rgb(bayer.unpack(b))
@@ -425,7 +437,7 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
             x_rgb = _per_item(dm_fn, xb_full)
         x_rgb_w = x_rgb - w_dual / tau
         if adapt is not None and mask[k]:
-            adapt(net, x_rgb_w, sigma, y_p, phi_p, y_full, phi_full, generator, opt)
+            adapt(net, x_rgb_w, sigma, y_p, phi_p, y_full, phi_full, generator, opt, shard)
         xhat = _per_item(lambda rgb: prior.apply(net, rgb, sigma), x_rgb_w)
         if relax is not None:
             xhat = x_rgb_w + relax[k] * (xhat - x_rgb_w)
@@ -637,6 +649,7 @@ def two_stage_admm_batched(
     dm_opt_state: Mapping | None = None,
     device: torch.device | str = "cuda",
     generator: torch.Generator | None = None,
+    mesh: Mesh | None = None,
 ) -> ADMMResult:
     """Reconstruct ``T`` independent measurements ``y_batch (T, H, W)`` of one
     scene under one mask ``phi (B, H, W)``: every result field gains a leading
@@ -649,7 +662,14 @@ def two_stage_admm_batched(
     lockstep, one kernel launch per step for all of them, each taking its own
     ``select_best`` pick; with either, one :func:`two_stage_admm` after
     another, the adaptation noise drawn from one ``generator`` in turn (the
-    JAX package splits one PRNG key per measurement instead)."""
+    JAX package splits one PRNG key per measurement instead).
+
+    ``mesh``: the ``T`` measurements split evenly over the ranks of its
+    ``data`` axis, each rank solving its consecutive share in lockstep, and
+    every field gathered back on every rank (the JAX package places the
+    batch with ``P('data')``). Without adaptation and ``dm_spec`` only: the
+    measurements of an adapting batch draw from one generator in turn, so a
+    rank could not start its share without the draws of the ones before."""
     check_supported(config, prior, demosaic_fn, dm_spec)
     y = as_f32(y_batch, device)
     phi = as_f32(phi_bayer, device)
@@ -659,6 +679,19 @@ def two_stage_admm_batched(
     for t in range(n):
         check_inputs(y[t], phi)
     adapting = config.adapt is not None and prior is not None
+    if mesh is not None:
+        if adapting or dm_spec is not None:
+            raise NotImplementedError("two_stage_admm_batched(mesh=) splits the lockstep solve: "
+                                      "an adapting batch runs on one rank")
+        mine = shard_slice(n, mesh, "data")
+        res = two_stage_admm_batched(y[mine], phi, config, prior, params,
+                                     None if x0 is None else x0[mine],
+                                     None if orig is None else orig[mine], demosaic_fn,
+                                     device=device)
+        fields = [gather(t, mesh, "data") for t in res[:5]]
+        resid = None if res.resid_trace is None else gather(res.resid_trace, mesh, "data")
+        variables = None if params is None else stack_states([dict(params)] * n)
+        return ADMMResult(*fields, variables, resid_trace=resid)
     if adapting or dm_spec is not None:
         if adapting and generator is None and draws_randoms(prior, config.adapt):
             generator = torch.Generator(device=device).manual_seed(0)
@@ -684,6 +717,18 @@ def two_stage_admm_batched(
         s = torch.stack([m[1] for m in metrics_t])
     variables = None if params is None else stack_states([dict(params)] * n)
     return ADMMResult(xhat, x_bayer, p, s, trace, variables, resid_trace=resids)
+
+
+def shard_slice(n: int, mesh: Mesh, axis: str) -> slice:
+    """This rank's consecutive share of ``n`` items split evenly over the
+    ranks of ``axis``."""
+    k = mesh.axis_size(axis)
+    if n % k:
+        raise ValueError(f"{n} items (measurements, or the tiles of a tile_chunk group) do "
+                         f"not split over the mesh's {k} {axis} ranks")
+    m = n // k
+    i = mesh.axis_index(axis)
+    return slice(i * m, (i + 1) * m)
 
 
 def _check_ddnet_window(win: int, config: ADMMConfig, dm_spec: DmSpec | None) -> None:
@@ -717,6 +762,7 @@ def two_stage_admm_tiled(
     overlap: int = 0,
     tile_chunk: int | None = None,
     device: torch.device | str = "cuda",
+    mesh: Mesh | None = None,
 ) -> ADMMResult:
     """Large-scene mode: reconstruct one oversized measurement ``y (H, W)``
     as ``tile x tile`` patches solved in lockstep, then stitch.
@@ -741,8 +787,18 @@ def two_stage_admm_tiled(
     ``x0_bayer``: the full-size warm start ``(B, H, W)`` (GAP-TV), cropped
     into tiles; without it each tile starts from the adjoint. The PSNR trace
     is the mean over tiles (zeros without ``orig_bayer``); ``resid_trace`` is
-    ``(groups, T + 1)``. There is no multi-card ``mesh``: one card runs every
-    tile."""
+    ``(groups, T + 1)``.
+
+    ``mesh``: the tiles of each group split evenly over the ranks of its
+    ``data`` axis (the group size must divide by it), each rank solving its
+    consecutive share (the JAX package places the tiles with ``P('data')``).
+    Each rank divides its tiles' adaptation losses by the group's tile count
+    and the gradients (the denoiser's and the in-scan demosaicker's) are
+    summed over the ranks; the ``select_best`` residual is averaged over all
+    the group's tiles; every rank draws the whole group's adaptation draws in
+    tile order and keeps its own. So each tile sees what it sees in one
+    process, and the stitched result, the weights and the Adam states come
+    back the same on every rank."""
     check_supported(config, prior, demosaic_fn, dm_spec)
     y = as_f32(y_bayer, device)
     phi = as_f32(phi_bayer, device)
@@ -776,20 +832,26 @@ def two_stage_admm_tiled(
         raise ValueError(f"tile_chunk {tile_chunk} must divide the tile count {n_tiles}")
     pooled = ((config.adapt is not None and prior is not None) or dm_spec is not None
               or config.select_best)
+    shard, mine = None, slice(0, chunk)
+    if mesh is not None:
+        mine = shard_slice(chunk, mesh, "data")
+        shard = ItemShard(mine.start, chunk, lambda ts: all_reduce_tensors(ts, mesh, "data"))
 
     with full_f32(), torch.no_grad():
         st = SolveState(config, prior, params, device, opt_state, dm_spec, dm_variables,
                     dm_opt_state, generator)
         thetas, xhats, traces, resids = [], [], [], []
         for c0 in range(0, n_tiles, chunk):
-            sl = slice(c0, c0 + chunk)
+            sl = slice(c0 + mine.start, c0 + mine.stop)
             y_c, phi_c = y_t[sl], phi_t[sl]
             x0_c = (physics.adjoint(bayer.pack(y_c), bayer.pack(phi_c), physics.PACKED_FRAME_AXIS)
                     if x0_t is None else bayer.pack(x0_t[sl]))
             theta, xhat, trace, r = run_admm(
                 config, prior, st.net, y_c, phi_c, x0_c,
                 None if orig_t is None else orig_t[sl], st.generator, demosaic_fn, st.dm,
-                st.opt, pooled)
+                st.opt, pooled, shard)
+            if mesh is not None:
+                theta, xhat, trace = (gather(v, mesh, "data") for v in (theta, xhat, trace))
             thetas.append(theta)
             xhats.append(xhat)
             traces.append(trace)

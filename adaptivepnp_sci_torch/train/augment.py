@@ -12,9 +12,17 @@ of draw (:func:`draw_modes`, :func:`random_sigma`, :func:`draw_noise`,
 own PRNG keys, so its numbers differ, and a test that compares the two
 replaces these functions with JAX's draws. A CPU generator gives the same
 draws whatever device the data is on.
+
+Under :func:`sharded_draws` (a data-parallel step, each rank holding one
+slice of the global batch) every per-sample draw is made for the global
+batch, in the order one process makes it, and the rank keeps its slice: each
+sample gets the numbers it gets in one process.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Iterator
 
 import torch
 from torch import Tensor
@@ -28,6 +36,38 @@ _MODES = 8
 _REF_AUG_WEIGHTS = (32.0, 12.0, 12.0, 12.0, 12.0, 12.0, 12.0, 12.0, 12.0)
 
 
+#: ``(index, count)``: this rank's slice of a batch split evenly over
+#: ``count`` ranks, while :func:`sharded_draws` is on
+_shard: tuple[int, int] | None = None
+
+
+@contextlib.contextmanager
+def sharded_draws(index: int, count: int) -> Iterator[None]:
+    """Per-sample draws for the ``index``-th of ``count`` equal slices of the
+    global batch: a draw for ``n`` samples is made for ``n * count`` and the
+    slice kept (:func:`global_rows`, :func:`local_rows`)."""
+    global _shard
+    before, _shard = _shard, (index, count)
+    try:
+        yield
+    finally:
+        _shard = before
+
+
+def global_rows(n: int) -> int:
+    """The global batch size of a per-sample draw for ``n`` local samples."""
+    return n if _shard is None else n * _shard[1]
+
+
+def local_rows(t: Tensor) -> Tensor:
+    """This rank's slice of a per-sample draw made for the global batch."""
+    if _shard is None:
+        return t
+    index, count = _shard
+    m = t.shape[0] // count
+    return t[index * m:(index + 1) * m]
+
+
 def apply_mode(img: Tensor, mode: int) -> Tensor:
     """Dihedral transform ``mode`` (0-7) of ``(..., H, W, C)`` over the
     ``(H, W)`` axes, as ``jnp.rot90(x, k, axes=(-3, -2))`` then a flip of
@@ -38,7 +78,8 @@ def apply_mode(img: Tensor, mode: int) -> Tensor:
 
 def draw_modes(generator: torch.Generator, n: int) -> Tensor:
     """``n`` dihedral modes, uniform over 0-7 (int64, generator's device)."""
-    return torch.randint(0, _MODES, (n,), generator=generator, device=generator.device)
+    return local_rows(torch.randint(0, _MODES, (global_rows(n),), generator=generator,
+                                    device=generator.device))
 
 
 def augment_batch(generator: torch.Generator, batch: Tensor) -> Tensor:
@@ -62,7 +103,7 @@ def draw_choice(generator: torch.Generator) -> int:
 def draw_offsets(generator: torch.Generator, n: int) -> Tensor:
     """``n`` standard normal draws: ``add_csnt``'s per-sample offsets before
     their ``5/255`` scale."""
-    return torch.randn(n, generator=generator, device=generator.device)
+    return local_rows(torch.randn(global_rows(n), generator=generator, device=generator.device))
 
 
 def normalize_augment(generator: torch.Generator, batch: Tensor,
@@ -87,13 +128,14 @@ def normalize_augment(generator: torch.Generator, batch: Tensor,
 def random_sigma(generator: torch.Generator, n: int, lo: float, hi: float) -> Tensor:
     """Per-sample noise standard deviation, uniform in [lo, hi] (already
     /255-scaled), float32 on the generator's device."""
-    u = torch.rand(n, generator=generator, device=generator.device)
+    u = local_rows(torch.rand(global_rows(n), generator=generator, device=generator.device))
     return u * (hi - lo) + lo
 
 
 def draw_noise(generator: torch.Generator, shape: tuple[int, ...]) -> Tensor:
     """Standard normal noise of ``shape`` (float32, generator's device)."""
-    return torch.randn(shape, generator=generator, device=generator.device)
+    return local_rows(torch.randn((global_rows(shape[0]), *shape[1:]), generator=generator,
+                                  device=generator.device))
 
 
 def add_gaussian_noise(generator: torch.Generator, x: Tensor, sigma: Tensor) -> Tensor:

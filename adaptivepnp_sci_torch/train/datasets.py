@@ -19,6 +19,8 @@ from typing import Iterator
 
 import numpy as np
 
+from adaptivepnp_sci_torch.data.native_loader import iter_npy_prefetched
+
 FFDNET_SCALES = (1.0, 0.9, 0.8, 0.7)
 
 
@@ -126,10 +128,12 @@ def synthetic_video_dataset(
 
 def load_array_dir(path: str) -> list[np.ndarray]:
     """All arrays of the ``.npy`` and ``.npz`` files of a directory (videos
-    or images): the ``.npy`` files in name order, then each ``.npz``'s
-    arrays, the files in name order."""
+    or images): the ``.npy`` files in name order, streamed through the
+    native prefetch ring (:mod:`adaptivepnp_sci_torch.data.native_loader`),
+    then each ``.npz``'s arrays, the files in name order."""
     names = sorted(os.listdir(path))
-    arrays = [np.load(os.path.join(path, n)) for n in names if n.endswith(".npy")]
+    npys = [os.path.join(path, n) for n in names if n.endswith(".npy")]
+    arrays = list(iter_npy_prefetched(npys)) if npys else []
     for name in names:
         if name.endswith(".npz"):
             with np.load(os.path.join(path, name)) as z:

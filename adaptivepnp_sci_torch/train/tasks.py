@@ -20,7 +20,8 @@ and, for these tasks' own, :func:`draw_fraction`, :func:`draw_coin` and
 :func:`draw_probe`: one function per kind of draw, for tests to replace with
 the JAX package's draws. The Bernoulli and the uniform of the mismatched-
 sigma fraction are separate draws, as the JAX package keeps them on separate
-keys.
+keys. Each is a per-sample draw of the global batch under
+:func:`~adaptivepnp_sci_torch.train.augment.sharded_draws`.
 
 The penalties run the network again without touching the step's BatchNorm
 statistics: the Lipschitz penalty's second train-mode forward under
@@ -58,21 +59,23 @@ class TrainTask(NamedTuple):
 def draw_fraction(generator: torch.Generator, n: int) -> Tensor:
     """The mismatched-sigma fraction per sample: 1 with probability 1/2,
     else uniform in [0, 1); the coin and the uniform are separate draws."""
-    dev = generator.device
-    coin = torch.rand(n, generator=generator, device=dev) < 0.5
-    u = torch.rand(n, generator=generator, device=dev)
+    dev, rows = generator.device, augment.global_rows(n)
+    coin = augment.local_rows(torch.rand(rows, generator=generator, device=dev)) < 0.5
+    u = augment.local_rows(torch.rand(rows, generator=generator, device=dev))
     return torch.where(coin, torch.ones_like(u), u)
 
 
 def draw_coin(generator: torch.Generator, n: int) -> Tensor:
     """``demosaic_aug``'s per-sample fair coin (bool)."""
-    return torch.rand(n, generator=generator, device=generator.device) < 0.5
+    rows = augment.global_rows(n)
+    return augment.local_rows(torch.rand(rows, generator=generator, device=generator.device)) < 0.5
 
 
 def draw_probe(generator: torch.Generator, shape: tuple[int, ...]) -> Tensor:
     """Standard normal probe directions: the Lipschitz perturbation (before
     its 0.02 scale), the power iteration's start, the Jacobian direction."""
-    return torch.randn(shape, generator=generator, device=generator.device)
+    return augment.local_rows(torch.randn((augment.global_rows(shape[0]), *shape[1:]),
+                                          generator=generator, device=generator.device))
 
 
 def _to(t: Tensor, like: Tensor) -> Tensor:

@@ -10,12 +10,21 @@ step (``packages/DDnet/train_common.py:110-125``) and resume (``:21-64``).
 A checkpoint is one ``torch.save`` file (``.pt``), read back with
 ``weights_only=True``; :func:`save_variables_npz` writes the JAX package's
 ``/``-keyed ``.npz`` of Flax variables, which both packages read. Orbax
-checkpoint directories are refused. Data parallelism (the JAX trainer's
-``mesh``) is not ported yet.
+checkpoint directories are refused.
+
+``TrainerConfig.mesh`` trains data-parallel over the ranks of a
+:class:`~adaptivepnp_sci_torch.parallel.mesh.Mesh`, as the JAX trainer
+shards its batch over ``("data", "frame")``: every rank is handed the global
+batch and keeps its slice, draws the global batch's random numbers in the
+order one process draws them and keeps its slice's (one generator, the same
+seed on every rank), normalises train-mode BatchNorm by the global batch's
+statistics, and steps with the gradients averaged over the ranks, so the
+weights stay the same on every rank. Rank 0 alone writes checkpoints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 from typing import Any, Callable, Iterator, Mapping
@@ -25,9 +34,17 @@ import torch
 from torch import Tensor
 
 from adaptivepnp_sci_torch.models import convert
+from adaptivepnp_sci_torch.models.common import sync_batch_stats
 from adaptivepnp_sci_torch.ops.metrics import psnr
+from adaptivepnp_sci_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_sum,
+    reduce_gradients,
+    shard,
+)
 from adaptivepnp_sci_torch.solvers.priors import module_copy
 from adaptivepnp_sci_torch.solvers.two_stage_admm import full_f32
+from adaptivepnp_sci_torch.train import augment
 from adaptivepnp_sci_torch.train.regularizers import svd_orthogonalize
 from adaptivepnp_sci_torch.train.tasks import TrainTask
 from adaptivepnp_sci_torch.utils.logging import get_logger
@@ -45,7 +62,12 @@ class TrainerConfig:
     ckpt_dir: str | None = None
     ckpt_every_epochs: int = 10
     seed: int = 42
+    mesh: Mesh | None = None                 # data parallelism over ('data', 'frame') ranks
     tensorboard_dir: str | None = None       # scalar logging (the reference's tensorboardX)
+
+
+#: the mesh axes a data-parallel batch is split over
+_BATCH_AXES = ("data", "frame")
 
 
 def _to_device(batch: Any, device: torch.device) -> Any:
@@ -74,6 +96,10 @@ class Trainer:
         self.optimizer = torch.optim.Adam(self.net.parameters(), lr=config.lr, eps=1e-8)
         self.step = 0
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        mesh = config.mesh
+        if mesh is not None:
+            ranks = mesh.axis_size(_BATCH_AXES)
+            sync_batch_stats(self.net, lambda s: all_reduce_sum(s, mesh, _BATCH_AXES) / ranks)
         self._tb = None
         if config.tensorboard_dir:
             try:
@@ -108,14 +134,30 @@ class Trainer:
         """One Adam step on ``batch`` (an array, or a tuple of arrays); then,
         every ``orthogonalize_every`` steps up to the last milestone's epoch,
         the SVD orthogonalization of the conv weights. Returns the loss as a
-        device tensor, not synchronised. TF32 is off for the step."""
+        device tensor, not synchronised. TF32 is off for the step.
+
+        With ``config.mesh`` the batch is the global one, the same on every
+        rank: the step runs on this rank's slice and returns the global
+        batch's loss."""
+        mesh = self.config.mesh
+        draws = contextlib.nullcontext()
+        if mesh is not None:
+            batch = _local_batch(batch, mesh)
+            draws = augment.sharded_draws(mesh.axis_index(_BATCH_AXES),
+                                          mesh.axis_size(_BATCH_AXES))
         batch = _to_device(batch, self.device)
         for group in self.optimizer.param_groups:
             group["lr"] = self.learning_rate(self.step)
         with full_f32():
             self.optimizer.zero_grad(set_to_none=True)
-            loss = self.task.loss_fn(self.net, self.generator, batch)
+            with draws:
+                loss = self.task.loss_fn(self.net, self.generator, batch)
             loss.backward()
+            if mesh is not None:
+                reduce_gradients(self.net.parameters(), mesh, _BATCH_AXES, average=True)
+                with torch.no_grad():
+                    loss = all_reduce_sum(loss.detach(), mesh, _BATCH_AXES) / mesh.axis_size(
+                        _BATCH_AXES)
             self.optimizer.step()
             self.step += 1
             cfg = self.config
@@ -128,8 +170,12 @@ class Trainer:
 
     def save(self, path: str | None = None) -> str:
         """Write ``{variables, opt_state, step, generator}`` with
-        ``torch.save`` to ``path`` (default ``ckpt_dir/step_{N}.pt``)."""
+        ``torch.save`` to ``path`` (default ``ckpt_dir/step_{N}.pt``); with a
+        mesh only rank 0 writes (every rank returns the path)."""
         path = path or os.path.join(self.config.ckpt_dir, f"step_{self.step}.pt")
+        mesh = self.config.mesh
+        if mesh is not None and mesh.rank != 0:
+            return path
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         torch.save({"variables": {k: v.detach().cpu() for k, v in self.variables.items()},
                     "opt_state": self.optimizer.state_dict(),
@@ -182,6 +228,13 @@ class Trainer:
         if not losses:
             return []
         return torch.stack(losses).cpu().tolist()
+
+
+def _local_batch(batch: Any, mesh: Mesh) -> Any:
+    """This rank's slice of a global batch (an array, or a tuple of arrays)."""
+    if isinstance(batch, (tuple, list)):
+        return tuple(_local_batch(b, mesh) for b in batch)
+    return shard(batch, mesh, _BATCH_AXES)
 
 
 def read_checkpoint(path: str) -> dict:

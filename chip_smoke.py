@@ -39,7 +39,17 @@ checkpoint (``train``). Then the six-scene reproduction run
 at 64x64x8 (``scenes_parity``), every scene in every mode at 512x512x8 with
 each row's launches against its table row (``scenes``); and the block zoo,
 FFDNet-IPOL, ``SpatialDnCNN``, ``PyramidEncoder``, the VGG19 features and
-``imresize`` on the card against the CPU (``models_parity``).
+``imresize`` on the card against the CPU (``models_parity``). Then the
+parallel paths of ``adaptivepnp_sci_torch.multihost_validation`` (the ring
+halo, the frame-sharded FastDVDnet prior in float32 and bf16, the
+data-parallel FFDNet step and FastDVDnet ``Trainer``, the solver with the
+sharded prior, the tiled and batched drivers' ``mesh``) on 2 ranks sharing
+the card through gloo and at world size 1 through NCCL, against each other
+and the CPU plain path at 64x64x8 (``parallel_parity``); at full width on 2
+ranks: the bf16 prior at 512^2, the ``tiled`` phase's 2048^2 snapshot with its
+tile groups over the ranks, a FastDVDnet training step (``parallel``); and
+the native ``.npy`` prefetch ring (built with g++, 1 GiB streamed) and a
+``torch.profiler`` trace of a flagship step (``host``).
 Each phase prints one JSON line; any failure exits nonzero. The last line is
 ``{"ok": true, "device": {...}}``. It exits 1 without printing a result when
 no CUDA device is present, and fails when the package is not beside it.
@@ -61,7 +71,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "k1", "k2", "k3", "slice_parity", "flagship",
           "fastdvd_parity", "fastdvd", "ddnet_parity", "ddnet", "drivers_parity", "tiled",
           "sequence", "pipeline_parity", "cli", "train_parity", "train", "scenes_parity",
-          "scenes", "models_parity", "kernels")
+          "scenes", "models_parity", "parallel_parity", "parallel", "host", "kernels")
 
 #: NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth, non-tensor fp32 rate and
 #: dense bf16 rate of the tensor cores
@@ -246,6 +256,64 @@ SCENES = dict(b=8, size=512, n_meas=1)
 #: output against its largest magnitude (float32, TF32 off); their times at
 #: full width
 MODELS_PARITY_REL = 1e-5
+
+#: the parallel paths (``adaptivepnp_sci_torch.multihost_validation``'s cases
+#: at 64x64x8, the tiled ones at 128^2 in tiles of 64) on 2 ranks sharing the
+#: card through gloo with CUDA tensors, and at world size 1 through NCCL (two
+#: NCCL ranks cannot share a card). Each rank's results are held to the NCCL
+#: run's (the same call at world size 1) and to the CPU plain path's, in units
+#: of the larger of 1 and the array's largest magnitude
+#: (``multihost_validation.compare``); the bf16 prior to bf16's bar. The DP
+#: FFDNet step's weights (Adam at lr 1e-3, one step) are held like
+#: ``TRAIN_PARITY``'s: a weight whose gradient is near zero can step +-lr on
+#: one side and -+lr on the other, so all but a thousandth within a tenth of
+#: lr and every one within 2 lr.
+PARALLEL_PARITY_BAR = {"world1": 1e-5, "cpu": 1e-4, "bf16": 2e-2, "dp_lr": 1e-3}
+_K = ("x_update", "tv_chambolle", "convpair")
+
+
+def _launches(x_update: int = 0, tv_chambolle: int = 0, convpair: int = 0) -> dict:
+    return {"x_update": x_update, "tv_chambolle": tv_chambolle, "convpair": convpair}
+
+
+#: launches of each case: (each of the 2 ranks, the world-size-1 run). K1 one
+#: launch per ADMM iteration on every rank, for all of the rank's tiles or
+#: measurements (the solver: 3 iterations from the adjoint; tiled: 5; the
+#: guarded tiled run: 40 warm-start x-updates and TV proxes, then 2 groups of
+#: 10 iterations and the guard's 40-step masked GAP-TV; tiled with DDnet and
+#: batched: 2). K3 in the bf16 prior only: 8 conv pairs per call on each rank's
+#: own frames, calls at B = 8 in both forms and at B = 2 in the shared-triplet
+#: form (the world-size-1 run adds B = 2 in the per-window form)
+PARALLEL_PARITY_LAUNCHES = {
+    **{c: (_launches(), _launches()) for c in ("halo", "too_many_shards", "prior",
+                                                "prior_grad", "dp_step", "trainer")},
+    "prior_bf16": (_launches(convpair=24), _launches(convpair=32)),
+    "solver": (_launches(3), _launches(3)), "solver_adapt": (_launches(3), _launches(3)),
+    "tiled": (_launches(5), _launches(5)),
+    "tiled_guard": (_launches(40 + 2 * 50, 40 + 2 * 40), _launches(40 + 2 * 50, 40 + 2 * 40)),
+    "tiled_dm": (_launches(2), _launches(2)), "batched": (_launches(2), _launches(2)),
+}
+#: full width on 2 ranks (gloo, one card): the bf16 prior on 8 frames of 512^2
+#: split over a frame axis of 2 (a warm-up and 5 timed calls: 8 conv pairs per
+#: call on each rank); the ``tiled`` phase's 2048^2 snapshot with
+#: ``tile_chunk=4`` and its groups split over a data axis of 2 (each rank: the
+#: full-size warm start's 40 x-updates and TV proxes, one x-update per
+#: iteration for its 2 tiles of each group, 8 conv pairs per denoiser call of
+#: each of its 8 tiles: K3 over the ranks sums to the one-process 4608); a
+#: FastDVDnet training step at batch 16 x 96^2 over a frame axis of 2. The
+#: tiled run is timed once, after a warm-up on a 1024^2 scene (one group of
+#: the same 4 tiles: the same kernels and shapes) whose collectives are
+#: profiled
+PARALLEL_LAUNCHES = {"prior_full": _launches(convpair=6 * 8),
+                     "tiled_full": _launches(40 + 4 * 36, 40, 8 * 36 * 8),
+                     "train_full": _launches()}
+#: the 2-rank snapshot against the one-process ``tiled`` run (tile_chunk 4):
+#: per-frame PSNR (dB); the adapted weights within Adam's opposite-sign bound,
+#: 2 lr x 16 steps (4 groups x 2 triggers x 2 steps at lr 2e-7)
+PARALLEL_TILED_DB = 0.01
+PARALLEL_TILED_DW = 2 * 16 * 2e-7
+#: host plumbing: ~1 GiB of .npy clips streamed through the native ring
+HOST_NPY = dict(files=64, shape=(4, 1024, 1024))
 
 
 def scenes_launches(name: str, mode: str, n_meas: int, lowp: bool) -> dict:
@@ -469,7 +537,7 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     needed = {"k1", "k2", "k3", "flagship", "fastdvd", "ddnet", "tiled", "sequence", "cli",
-              "train", "scenes"}
+              "train", "scenes", "parallel"}
     if "kernels" in phases and not needed <= phases:
         ap.error(f"the kernels phase needs the {', '.join(sorted(needed))} phases")
     from adaptivepnp_sci_torch import (
@@ -1304,6 +1372,10 @@ def main(argv: list[str]) -> int:
                         secs.append(dt)
                         groups.append(list(group_ms))
                 peak = torch.cuda.max_memory_allocated()
+                if chunk == 4:
+                    report["tiled_chunk4"] = {
+                        "psnr": res.psnr_per_frame.cpu().numpy(), "seconds": secs[-1],
+                        "variables": {k: v.cpu() for k, v in res.variables.items()}}
                 require(tuple(res.x_bayer.shape) == (8, size, size)
                         and tuple(res.x_rgb.shape) == (8, size, size, 3), "tiled: shapes")
                 require(bool(torch.isfinite(res.x_bayer).all() & torch.isfinite(res.x_rgb).all()),
@@ -2037,6 +2109,247 @@ def main(argv: list[str]) -> int:
              full_width_ms=timings, **card)
         require(all(e <= MODELS_PARITY_REL for e in errs.values()), f"models_parity: {errs}")
 
+    # ----------------------------------------------------- parallel_parity
+    if "parallel_parity" in phases:
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+
+        from adaptivepnp_sci_torch import multihost_validation as mv
+
+        torch.cuda.empty_cache()
+        cases, sizes = mv.DEFAULT_CASES["card"], mv.SIZES["card"]
+        bar = PARALLEL_PARITY_BAR
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d2, tempfile.TemporaryDirectory() as d1, \
+                ThreadPoolExecutor(2) as pool:
+            # the 2-rank gloo run and the 1-rank NCCL run share the card, while
+            # this process runs the CPU plain path
+            gloo = pool.submit(mv.launch, 2, d2, "cuda", "gloo", cases, "card", 900.0)
+            nccl = pool.submit(mv.launch, 1, d1, "cuda", "nccl", cases, "card", 900.0)
+            cpu = {name: mv.run_case(name, None, "cpu", sizes) for name in cases}
+            cpu_seconds = time.perf_counter() - t0
+            ranks, (world1,) = gloo.result(), nccl.result()
+        seconds = time.perf_counter() - t0
+
+        def counts(res):
+            return {k: int(res[f"launches__{k}"]) for k in _K}
+
+        def dp_params(got, want):
+            # Adam's opposite-sign bound (PARALLEL_PARITY_BAR)
+            d = np.abs(got - want)
+            frac = float((d > 0.1 * bar["dp_lr"]).mean())
+            require(frac <= 1e-3 and float(d.max()) <= 2 * bar["dp_lr"],
+                    f"parallel_parity dp_step: params {float(d.max())}, {frac} beyond lr/10")
+            return float(d.max())
+
+        for name in cases:
+            want_rank, want_w1 = PARALLEL_PARITY_LAUNCHES[name]
+            per_rank = [counts(r[name]) for r in ranks]
+            require(all(c == want_rank for c in per_rank) and counts(world1[name]) == want_w1,
+                    f"parallel_parity {name}: launches {per_rank}, world 1 {counts(world1[name])}")
+            fields = {}
+            if name == "too_many_shards":
+                require(all(int(r[name]["raised"]) == 1 and bool(r[name]["too_many_shards"])
+                            for r in ranks), "parallel_parity: too many shards not refused")
+            else:
+                lowp = name == "prior_bf16"
+                d_w1, d_cpu = [], []
+                for r in ranks:
+                    got = mv.outputs(r[name])
+                    ref_w1, ref_cpu = mv.outputs(world1[name]), cpu[name]
+                    if name == "dp_step":
+                        params = got.pop("params")
+                        d_w1.append(dp_params(params, ref_w1["params"]))
+                        d_cpu.append(dp_params(params, ref_cpu["params"]))
+                    d_w1.append(mv.compare(name, got, ref_w1,
+                                           bar["bf16"] if lowp else bar["world1"]))
+                    d_cpu.append(mv.compare(name, got, ref_cpu,
+                                            bar["bf16"] if lowp else bar["cpu"]))
+                fields = {"max_scaled_d_world1": max(d_w1), "max_scaled_d_cpu": max(d_cpu)}
+            emit("parallel_parity", case=name, ranks=2, backend="gloo (CUDA tensors); "
+                 "world size 1: nccl", launches_per_rank=per_rank,
+                 launches_world1=counts(world1[name]),
+                 seconds_per_rank=[float(r[name]["seconds"]) for r in ranks],
+                 seconds_world1=float(world1[name]["seconds"]),
+                 collectives_ms_per_rank=[float(r[name]["collectives_ms"]) for r in ranks],
+                 collectives_per_rank=[int(r[name]["collectives_count"]) for r in ranks],
+                 collectives_by_key_rank0=ranks[0][name]["collectives_by_key"].tolist(),
+                 collectives_ms_world1_nccl_host=float(world1[name]["collectives_ms"]),
+                 nccl_device_ms_world1=float(world1[name]["nccl_device_ms"]),
+                 peak_mem_bytes_per_rank=[int(r[name]["peak_mem_bytes"]) for r in ranks],
+                 bar=bar, **fields, **card)
+        emit("parallel_parity_total", seconds=seconds, cpu_plain_path_seconds=cpu_seconds,
+             cases=len(cases), **card)
+
+    # ------------------------------------------------------------ parallel
+    if "parallel" in phases:
+        import tempfile
+
+        from adaptivepnp_sci_torch import multihost_validation as mv
+
+        torch.cuda.empty_cache()
+        full = mv.SIZES["full"]
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            ranks = mv.launch(2, d, "cuda", "gloo", mv.DEFAULT_CASES["full"], "full", 900.0)
+        seconds = time.perf_counter() - t0
+        for name in mv.DEFAULT_CASES["full"]:
+            per_rank = [{k: int(r[name][f"launches__{k}"]) for k in _K} for r in ranks]
+            require(all(c == PARALLEL_LAUNCHES[name] for c in per_rank),
+                    f"parallel {name}: launches per rank {per_rank}")
+        report["launches_parallel_tiled"] = [
+            {**{k: int(r["tiled_full"][f"launches__{k}"]) for k in _K},
+             **{f"convpair_{n}": int(sum(row[3] for row in r["tiled_full"]["launches_by_shape"]
+                                         if tuple(row[:3]) == shp))
+                for n, shp in CONVPAIR_MAIN_SHAPES.items()}} for r in ranks]
+        peaks = {name: [int(r[name]["peak_mem_bytes"]) for r in ranks]
+                 for name in mv.DEFAULT_CASES["full"]}
+
+        # the prior: against the one-process call on the card
+        one = mv.run_case("prior_full", None, "cuda", full)
+        d_prior = max(mv.compare("prior_bf16", {"out": r["prior_full"]["out"]},
+                                 {"out": one["out"]}) for r in ranks)
+        emit("parallel", case="prior_full", shape=[8, full.side, full.side],
+             mode="bf16 FastDVDnet, frames over frame=2", ms_per_call_per_rank=[
+                 1e3 * float(r["prior_full"]["seconds_per_call"]) for r in ranks],
+             ms_per_call_one_process=1e3 * float(one["seconds_per_call"]),
+             max_scaled_d_one_process=d_prior, bar=PARALLEL_PARITY_BAR["bf16"],
+             launches_per_rank=PARALLEL_LAUNCHES["prior_full"],
+             collectives_ms_per_rank=[float(r["prior_full"]["collectives_ms"]) for r in ranks],
+             collectives_per_rank=[int(r["prior_full"]["collectives_count"]) for r in ranks],
+             collectives_by_key_rank0=ranks[0]["prior_full"]["collectives_by_key"].tolist(),
+             case_seconds_per_rank=[float(r["prior_full"]["seconds"]) for r in ranks],
+             peak_mem_bytes_per_rank=peaks["prior_full"], **card)
+        require(d_prior <= PARALLEL_PARITY_BAR["bf16"], f"parallel prior_full: {d_prior}")
+
+        # the tiled snapshot: against the one-process tile_chunk=4 run
+        ref = report.get("tiled_chunk4")
+        if ref is None:
+            one = mv.run_case("tiled_full", None, "cuda", full)
+            ref = {"psnr": one["psnr"], "seconds": float(one["seconds_per_snapshot"]),
+                   "variables": None, "variables_flat": one["variables"]}
+        ref_flat = (ref["variables_flat"] if ref.get("variables") is None
+                    else np.concatenate([ref["variables"][k].reshape(-1).float().numpy()
+                                         for k in sorted(ref["variables"])
+                                         if ref["variables"][k].is_floating_point()]))
+        start = np.concatenate([fastdvd_params[k].reshape(-1).float().numpy()
+                                for k in sorted(fastdvd_params)
+                                if fastdvd_params[k].is_floating_point()])
+        tf = [r["tiled_full"] for r in ranks]
+        db = max(float(np.abs(t["psnr"] - ref["psnr"]).max()) for t in tf)
+        dw = max(float(np.abs(t["variables"] - ref_flat).max()) for t in tf)
+        moved = [float(np.abs(t["variables"] - start).max()) for t in tf]
+        same = bool(np.array_equal(tf[0]["variables"], tf[1]["variables"]))
+        k3 = sum(int(t["launches__convpair"]) for t in tf)
+        emit("parallel", case="tiled_full", shape=[8, full.tiled, full.tiled],
+             tile=full.tiled // 4, tile_chunk=mv.FULL_TILE_CHUNK, data=2,
+             mode="bf16 FastDVDnet (remat off), adaptation shared over the tiles",
+             seconds_per_snapshot_per_rank=[float(t["seconds_per_snapshot"]) for t in tf],
+             seconds_per_snapshot_one_process=ref["seconds"],
+             psnr_db=[float(t["psnr"].mean()) for t in tf],
+             psnr_db_one_process=float(np.mean(ref["psnr"])), max_dpsnr_db=db,
+             max_abs_dw_one_process=dw, weights_moved=moved, weights_same_on_ranks=same,
+             bar={"db": PARALLEL_TILED_DB, "dw": PARALLEL_TILED_DW},
+             launches_per_rank=[{k: int(t[f"launches__{k}"]) for k in _K} for t in tf],
+             convpair_sum_over_ranks=k3,
+             warmup=f"one group of {mv.FULL_TILE_CHUNK} tiles on a {full.tiled // 2}^2 scene",
+             warmup_collectives_ms_per_rank=[float(t["warmup_collectives_ms"]) for t in tf],
+             warmup_collectives_per_rank=[int(t["warmup_collectives_count"]) for t in tf],
+             warmup_collectives_by_key_rank0=tf[0]["warmup_collectives_by_key"].tolist(),
+             case_seconds_per_rank=[float(t["seconds"]) for t in tf],
+             peak_mem_bytes_per_rank=peaks["tiled_full"], **card)
+        require(db <= PARALLEL_TILED_DB and dw <= PARALLEL_TILED_DW,
+                f"parallel tiled_full: {db} dB, weights {dw}")
+        require(same and min(moved) > 0, f"parallel tiled_full: weights {same}, moved {moved}")
+        require(k3 == TILED_LAUNCHES[4]["convpair"], f"parallel tiled_full: K3 {k3} over ranks")
+
+        # the training step: the same weights on both ranks; one process beside it
+        tr = [r["train_full"] for r in ranks]
+        one = mv.run_case("train_full", None, "cuda", full)
+        require(bool(np.array_equal(tr[0]["params"], tr[1]["params"]))
+                and all(np.isfinite(t["losses"]).all() for t in tr),
+                "parallel train_full: ranks disagree or non-finite")
+        emit("parallel", case="train_full", network="fastdvd",
+             batch=mv.FULL_TRAIN_BATCH, patch=full.patch, frame=2,
+             seconds_per_step_per_rank=[float(t["seconds_per_step"]) for t in tr],
+             seconds_per_step_one_process=float(one["seconds_per_step"]),
+             losses=tr[0]["losses"].tolist(), losses_one_process=one["losses"].tolist(),
+             collectives_ms_per_rank=[float(t["collectives_ms"]) for t in tr],
+             collectives_per_rank=[int(t["collectives_count"]) for t in tr],
+             collectives_by_key_rank0=tr[0]["collectives_by_key"].tolist(),
+             case_seconds_per_rank=[float(t["seconds"]) for t in tr],
+             peak_mem_bytes_per_rank=peaks["train_full"], **card)
+        emit("parallel_total", seconds=seconds, **card)
+
+    # ---------------------------------------------------------------- host
+    if "host" in phases:
+        import tempfile
+
+        from adaptivepnp_sci_torch.data import native_loader
+        from adaptivepnp_sci_torch.utils import profiling
+
+        t0 = time.perf_counter()
+        require(native_loader.native_available(), "host: the native prefetch ring did not build")
+        build_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as d:
+            rng = np.random.default_rng(0)
+            paths = []
+            for i in range(HOST_NPY["files"]):
+                paths.append(str(Path(d) / f"clip_{i:03d}.npy"))
+                np.save(paths[-1], rng.random(HOST_NPY["shape"], dtype=np.float32))
+            nbytes = sum(Path(p).stat().st_size for p in paths)
+            rates = {}
+            for route in ("native", "np.load", "native"):
+                t0 = time.perf_counter()
+                if route == "native":
+                    got = list(native_loader.iter_npy_prefetched(paths, workers=4, capacity=8))
+                else:
+                    got = [np.load(p) for p in paths]
+                rates.setdefault(route, []).append(nbytes / 1e6 / (time.perf_counter() - t0))
+                if route == "native":
+                    require(len(got) == len(paths) and all(
+                        np.array_equal(a, np.load(p)) for a, p in zip(got, paths)),
+                        "host: the native ring's arrays differ from np.load's")
+                del got
+            # one flagship reconstruction under the profiler, its two stages annotated
+            sc = make_scene(b=8, h=512, w=512, seed=42)
+            prior = ffdnet_prior(FFDNet(nc=96, nb=12))
+            params = ffdnet_from_flax(flax_style_ffdnet_params(96, 12, seed=0))
+            cfg = ADMMConfig(sigma=SIGMA, iters=ITERS, adapt=AdaptConfig(
+                lr=2e-6, update_per_iter=2, interval_iter=15, initial_iter=1))
+
+            def flagship_step():
+                with profiling.annotate("host_warm_start"):
+                    warm = gap_tv(sc.meas, sc.mask, GapTVConfig(iters=40), device="cuda")
+                with profiling.annotate("host_admm"):
+                    return two_stage_admm(sc.meas, sc.mask, cfg, prior, params, warm.x_bayer,
+                                          sc.orig_bayer, device="cuda")
+
+            timer = profiling.StepTimer()
+            with timer.measure() as h:
+                h["out"] = flagship_step().x_bayer  # warm-up
+            with timer.measure() as h, profiling.trace(str(Path(d) / "trace")) as prof:
+                h["out"] = flagship_step().x_bayer
+            for _ in range(2):
+                with timer.measure() as h:
+                    h["out"] = flagship_step().x_bayer
+            trace_path = Path(d) / "trace" / profiling.TRACE_NAME
+            events = json.loads(trace_path.read_text())["traceEvents"]
+            names = {e.get("name") for e in events}
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            require({"host_warm_start", "host_admm"} <= names,
+                    "host: the trace lacks the annotated spans")
+            require(any("x_update" in e.get("name", "") for e in kernels),
+                    "host: the trace holds no device kernel of the port")
+            dev_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+            trace_mb = trace_path.stat().st_size / 1e6
+        emit("host", native_available=True, native_build_s=build_s, npy_files=len(paths),
+             npy_bytes=nbytes, mb_per_s=rates, mb_per_s_note="page cache warm: the files "
+             "were just written", trace_spans=["host_warm_start", "host_admm"],
+             trace_kernels=len(kernels), trace_device_ms=dev_ms, trace_mb=trace_mb,
+             step_s_untraced=[timer.history[0], *timer.history[2:]],
+             step_s_traced=timer.history[1], video="not run (no cv2 on this machine)", **card)
+
     # ------------------------------------------------------------- kernels
     if "kernels" in phases:
         # launches on the main paths: the flagship's for its two kernels, the
@@ -2049,6 +2362,7 @@ def main(argv: list[str]) -> int:
         launches_cli = dict(report["launches_cli"])
         launches_train = dict(report["launches_train"])
         launches_scenes = dict(report["launches_scenes"])
+        launches_parallel = [dict(r) for r in report["launches_parallel_tiled"]]
         for name, shape in CONVPAIR_MAIN_SHAPES.items():
             launches_scenes[f"convpair_{name}"] = report["launches_convpair_scenes"].get(shape, 0)
             launches_cli[f"convpair_{name}"] = report["launches_convpair_cli"].get(shape, 0)
@@ -2077,6 +2391,7 @@ def main(argv: list[str]) -> int:
                          "launches_cli": launches_cli[name],
                          "launches_train": launches_train[name],
                          "launches_scenes": launches_scenes[name],
+                         "launches_parallel_tiled_per_rank": [p[name] for p in launches_parallel],
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                          "previous_ms": r.get("previous_ms"), "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2084,7 +2399,8 @@ def main(argv: list[str]) -> int:
                          **{k: r[k] for k in extra.get(name, ())}})
         require(all(r["launches"] > 0 and r["launches_ddnet_row"] > 0 and r["launches_tiled"] > 0
                     and r["launches_cli"] > 0 and r["launches_train"] > 0
-                    and r["launches_scenes"] > 0 for r in rows),
+                    and r["launches_scenes"] > 0
+                    and min(r["launches_parallel_tiled_per_rank"]) > 0 for r in rows),
                 f"a kernel was never launched: {rows}")
         require(all(r["launches_sequence"] > 0 for r in rows[:2]),
                 f"the sequence path missed a kernel: {rows}")

@@ -133,6 +133,29 @@ with tempfile.TemporaryDirectory() as d:
                                    random_init=True, device="cpu")
     assert rows[0][:3] == ("Beauty", "ffd", "photo") and os.path.exists(
         os.path.join(d, run_all_scenes.TABLE_NAME))
+# the parallel and host modules: a one-process mesh (every collective the
+# identity), the sharded prior and the DP step on it, the native ring, video, profiling
+from adaptivepnp_sci_torch import multihost_validation
+from adaptivepnp_sci_torch.data import native_loader, video
+from adaptivepnp_sci_torch.parallel import halo_windows, make_mesh
+from adaptivepnp_sci_torch.parallel.distributed import global_mesh, initialize
+from adaptivepnp_sci_torch.parallel.sharded import fastdvd_prior_sharded, make_dp_train_step
+from adaptivepnp_sci_torch.utils import profiling
+mesh = global_mesh()
+assert halo_windows(torch.arange(4.0), mesh, window=3).shape == (4, 3)
+sprior = fastdvd_prior_sharded(FastDVDnet(), mesh)
+with torch.no_grad():
+    out = sprior.apply(FastDVDnet().eval(), torch.rand(4, 8, 8, 3), torch.tensor(0.1))
+assert out.shape == (4, 8, 8, 3)
+net = FFDNet(nc=8, nb=3)
+step, place = make_dp_train_step(net, torch.optim.Adam(net.parameters()), mesh)
+assert bool(step(*place(np.ones((2, 8, 8, 3), np.float32), np.ones((2, 8, 8, 3), np.float32),
+                        np.full(2, 0.1, np.float32))).isfinite())
+assert callable(initialize) and "video_clip_dataset" in dir(video)
+assert multihost_validation.CASES and callable(native_loader.iter_npy_prefetched)
+timer = profiling.StepTimer()
+with timer.measure() as h:
+    h["out"] = torch.ones(2)
 try:
     ab_convpair.main(32, 16, 1)
 except RuntimeError as err:
