@@ -360,8 +360,11 @@ def _sync(meshes, dev) -> None:
 
 
 def case_prior_full(meshes, dev, sz):
-    """The bf16 prior on 8 frames of ``side^2``: one warm-up call, then the
-    median of 5 timed calls."""
+    """The bf16 prior on 8 frames of ``side^2``: one warm-up call, the median
+    of 5 timed calls, then one call under ``torch.profiler`` (host activity:
+    its collectives)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from adaptivepnp_sci_torch.models.fastdvdnet import FastDVDnet
     from adaptivepnp_sci_torch.parallel.sharded import fastdvd_prior_sharded
     from adaptivepnp_sci_torch.solvers.priors import fastdvd_prior, working_copy
@@ -380,7 +383,11 @@ def case_prior_full(meshes, dev, sz):
             out = prior.apply(net, rgb, sigma)
             _sync(meshes, dev)
             times.append(time.perf_counter() - t0)
-    return {"out": _np(out), "seconds_per_call": np.array(float(np.median(times)))}
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            prior.apply(net, rgb, sigma)
+            _sync(meshes, dev)
+    return {"out": _np(out), "seconds_per_call": np.array(float(np.median(times))),
+            **collective_profile(prof, "call_")}
 
 
 def case_tiled_full(meshes, dev, sz):
@@ -429,7 +436,10 @@ def case_tiled_full(meshes, dev, sz):
 
 def case_train_full(meshes, dev, sz):
     """FastDVDnet ``Trainer`` steps at batch 16 x ``patch^2``: 5 warm-up
-    steps, then the mean of 5 timed ones."""
+    steps, the mean of 5 timed ones, then one step under ``torch.profiler``
+    (host activity: its collectives)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from adaptivepnp_sci_torch.models.fastdvdnet import FastDVDnet
     from adaptivepnp_sci_torch.train import Trainer, TrainerConfig
     from adaptivepnp_sci_torch.train.tasks import fastdvd_task
@@ -446,8 +456,13 @@ def case_train_full(meshes, dev, sz):
         _sync(meshes, dev)
         if i >= FULL_TRAIN_WARMUP:
             times.append(time.perf_counter() - t0)
+    params = _state_flat(trainer.variables)
+    clips = rng.random((FULL_TRAIN_BATCH, 5, sz.patch, sz.patch, 3), dtype=np.float32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer.train_step(clips)
+        _sync(meshes, dev)
     return {"losses": _np(torch.stack(losses)), "seconds_per_step": np.array(np.mean(times)),
-            "params": _state_flat(trainer.variables)}
+            "params": params, **collective_profile(prof, "step_")}
 
 
 CASES: dict[str, Callable] = {
@@ -463,7 +478,7 @@ DEFAULT_CASES = {"cpu": list(CASES)[:13], "card": list(CASES)[:13],
                  "full": ["prior_full", "tiled_full", "train_full"]}
 DEFAULT_CASES["cpu"].remove("prior_bf16")
 #: cases that time themselves, and profile only what they do not time
-SELF_TIMED = {"tiled_full"}
+SELF_TIMED = {"prior_full", "tiled_full", "train_full"}
 
 #: (The adaptation and training cases step at lr 2e-6 or below: Adam moves a
 #: weight by about lr whatever its gradient's size, so where two summation
@@ -494,7 +509,9 @@ def collective_profile(prof, prefix: str = "") -> dict[str, np.ndarray]:
     it), and the device milliseconds of NCCL's kernels."""
     host_ms, count, dev_ms, by_key = 0.0, 0, 0.0, []
     for e in prof.key_averages():
-        if e.key.startswith(("gloo:", "nccl:")):
+        # a gloo collective of CUDA tensors also leaves an event of no
+        # duration beside the one that runs it: count the timed ones
+        if e.key.startswith(("gloo:", "nccl:")) and e.cpu_time_total > 0:
             host_ms += e.cpu_time_total / 1e3
             count += e.count
             by_key.append(f"{e.key} x{e.count} {e.cpu_time_total / 1e3:.3f} ms")
@@ -533,7 +550,7 @@ def worker(rank: int, nproc: int, init: str, device: str, backend: str, cases: l
             torch.cuda.reset_peak_memory_stats()
         dist.barrier()
         t0 = time.perf_counter()
-        if name in SELF_TIMED:
+        if name in SELF_TIMED or device != "cuda":
             arrays = run_case(name, meshes, device, SIZES[size])
         else:
             with profile(activities=activities) as prof:
@@ -615,7 +632,8 @@ def launch(nproc: int, out: str, device: str = "cpu", backend: str = "gloo",
 
 #: the worker's measurements beside a case's results: launches, times,
 #: memory, the collectives' profile
-_MEASURED = ("launches", "seconds", "peak_mem", "collectives", "nccl_", "warmup_")
+_MEASURED = ("launches", "seconds", "peak_mem", "collectives", "nccl_", "warmup_", "call_",
+             "step_")
 
 
 def outputs(case: dict[str, np.ndarray]) -> dict[str, np.ndarray]:

@@ -294,8 +294,8 @@ PARALLEL_PARITY_LAUNCHES = {
     "tiled_dm": (_launches(2), _launches(2)), "batched": (_launches(2), _launches(2)),
 }
 #: full width on 2 ranks (gloo, one card): the bf16 prior on 8 frames of 512^2
-#: split over a frame axis of 2 (a warm-up and 5 timed calls: 8 conv pairs per
-#: call on each rank); the ``tiled`` phase's 2048^2 snapshot with
+#: split over a frame axis of 2 (a warm-up, 5 timed calls and a profiled one:
+#: 8 conv pairs per call on each rank); the ``tiled`` phase's 2048^2 snapshot with
 #: ``tile_chunk=4`` and its groups split over a data axis of 2 (each rank: the
 #: full-size warm start's 40 x-updates and TV proxes, one x-update per
 #: iteration for its 2 tiles of each group, 8 conv pairs per denoiser call of
@@ -304,7 +304,7 @@ PARALLEL_PARITY_LAUNCHES = {
 #: tiled run is timed once, after a warm-up on a 1024^2 scene (one group of
 #: the same 4 tiles: the same kernels and shapes) whose collectives are
 #: profiled
-PARALLEL_LAUNCHES = {"prior_full": _launches(convpair=6 * 8),
+PARALLEL_LAUNCHES = {"prior_full": _launches(convpair=7 * 8),
                      "tiled_full": _launches(40 + 4 * 36, 40, 8 * 36 * 8),
                      "train_full": _launches()}
 #: the 2-rank snapshot against the one-process ``tiled`` run (tile_chunk 4):
@@ -2215,9 +2215,10 @@ def main(argv: list[str]) -> int:
              ms_per_call_one_process=1e3 * float(one["seconds_per_call"]),
              max_scaled_d_one_process=d_prior, bar=PARALLEL_PARITY_BAR["bf16"],
              launches_per_rank=PARALLEL_LAUNCHES["prior_full"],
-             collectives_ms_per_rank=[float(r["prior_full"]["collectives_ms"]) for r in ranks],
-             collectives_per_rank=[int(r["prior_full"]["collectives_count"]) for r in ranks],
-             collectives_by_key_rank0=ranks[0]["prior_full"]["collectives_by_key"].tolist(),
+             call_collectives_ms_per_rank=[float(r["prior_full"]["call_collectives_ms"])
+                                           for r in ranks],
+             call_collectives_by_key_rank0=ranks[0]["prior_full"][
+                 "call_collectives_by_key"].tolist(),
              case_seconds_per_rank=[float(r["prior_full"]["seconds"]) for r in ranks],
              peak_mem_bytes_per_rank=peaks["prior_full"], **card)
         require(d_prior <= PARALLEL_PARITY_BAR["bf16"], f"parallel prior_full: {d_prior}")
@@ -2274,9 +2275,8 @@ def main(argv: list[str]) -> int:
              seconds_per_step_per_rank=[float(t["seconds_per_step"]) for t in tr],
              seconds_per_step_one_process=float(one["seconds_per_step"]),
              losses=tr[0]["losses"].tolist(), losses_one_process=one["losses"].tolist(),
-             collectives_ms_per_rank=[float(t["collectives_ms"]) for t in tr],
-             collectives_per_rank=[int(t["collectives_count"]) for t in tr],
-             collectives_by_key_rank0=tr[0]["collectives_by_key"].tolist(),
+             step_collectives_ms_per_rank=[float(t["step_collectives_ms"]) for t in tr],
+             step_collectives_by_key_rank0=tr[0]["step_collectives_by_key"].tolist(),
              case_seconds_per_rank=[float(t["seconds"]) for t in tr],
              peak_mem_bytes_per_rank=peaks["train_full"], **card)
         emit("parallel_total", seconds=seconds, **card)
