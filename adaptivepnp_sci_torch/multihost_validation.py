@@ -16,14 +16,16 @@ data-parallel FastDVDnet ``Trainer`` (train-mode BatchNorm over the global
 batch); a two-stage ADMM solve with the sharded prior, without and with one
 adaptation trigger; the tiled driver with its tiles over ranks (FFDNet with
 the raw guard, FastDVDnet with the held-out guard and adaptation noise, and
-the in-scan DDnet update); the batched driver. ``--size card`` adds the bf16
-prior (the conv-pair kernel) and runs at 64x64 (the tiled driver at 128x128).
+the in-scan DDnet update); the batched driver. On the card (``--size card``,
+the default there) the cases add the bf16 prior (the conv-pair kernel) and
+run at 64x64 (the tiled driver at 128x128); ``--device cpu`` runs them at
+16x16 (``--size cpu``).
 
 Run from the repository root:
 
-    python -m adaptivepnp_sci_torch.multihost_validation            # 2 CPU ranks, gloo
-    python -m adaptivepnp_sci_torch.multihost_validation --device cuda --backend gloo
-    python -m adaptivepnp_sci_torch.multihost_validation --device cuda --backend nccl --nproc 1
+    python -m adaptivepnp_sci_torch.multihost_validation --backend gloo   # 2 ranks, one card
+    python -m adaptivepnp_sci_torch.multihost_validation --nproc 1        # NCCL, one card
+    python -m adaptivepnp_sci_torch.multihost_validation --device cpu     # 2 CPU ranks, gloo
 
 Two NCCL ranks cannot share one card; several ranks on one card use gloo,
 whose collectives take CUDA tensors. Every worker runs one intra-op thread.
@@ -584,15 +586,13 @@ def split_results(arrays: dict[str, np.ndarray]) -> dict[str, dict[str, np.ndarr
     return out
 
 
-def launch(nproc: int, out: str, device: str = "cpu", backend: str = "gloo",
-           cases: list[str] | None = None, size: str = "cpu", timeout: float = 600.0,
-           module: str = "adaptivepnp_sci_torch.multihost_validation"
-           ) -> list[dict[str, dict[str, np.ndarray]]]:
-    """Run ``cases`` on ``nproc`` worker processes joined through a
+def launch(nproc: int, out: str, device: str, backend: str, cases: list[str], size: str,
+           timeout: float = 600.0) -> list[dict[str, dict[str, np.ndarray]]]:
+    """Run ``cases`` at ``SIZES[size]`` on ``nproc`` worker processes on
+    ``device`` (``"cuda"`` or ``"cpu"``), joined over ``backend`` through a
     ``file://`` rendezvous in ``out``; returns each rank's results by case.
     Raises ``RuntimeError`` (with the workers' log tails) when a worker fails
     or the run outlasts ``timeout`` seconds; every worker is stopped."""
-    cases = DEFAULT_CASES[size] if cases is None else cases
     init = f"file://{os.path.join(out, 'rendezvous')}"
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT), env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
@@ -601,9 +601,9 @@ def launch(nproc: int, out: str, device: str = "cpu", backend: str = "gloo",
         log = open(os.path.join(out, f"worker{rank}.log"), "w+")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", module, "--worker", str(rank), str(nproc), init,
-             "--device", device, "--backend", backend, "--cases", ",".join(cases),
-             "--size", size, "--out", out],
+            [sys.executable, "-m", "adaptivepnp_sci_torch.multihost_validation",
+             "--worker", str(rank), str(nproc), init, "--device", device, "--backend", backend,
+             "--cases", ",".join(cases), "--size", size, "--out", out],
             stdout=log, stderr=subprocess.STDOUT, cwd=ROOT, env=env, start_new_session=True))
     deadline = time.monotonic() + timeout
     try:
@@ -672,20 +672,22 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--worker", nargs=3, metavar=("RANK", "NPROC", "INIT"))
     ap.add_argument("--nproc", type=int, default=2)
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
                     help="default: nccl on cuda, gloo on cpu")
     ap.add_argument("--cases", default=None, help=f"comma-separated subset of {','.join(CASES)}")
-    ap.add_argument("--size", default="cpu", choices=tuple(SIZES))
+    ap.add_argument("--size", default=None, choices=tuple(SIZES),
+                    help="default: card on cuda, cpu on cpu")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     from adaptivepnp_sci_torch.parallel.distributed import default_backend
 
     backend = args.backend or default_backend(args.device)
-    cases = DEFAULT_CASES[args.size] if args.cases is None else args.cases.split(",")
+    size = args.size or ("card" if args.device == "cuda" else "cpu")
+    cases = DEFAULT_CASES[size] if args.cases is None else args.cases.split(",")
     if args.worker:
         rank, nproc, init = int(args.worker[0]), int(args.worker[1]), args.worker[2]
-        worker(rank, nproc, init, args.device, backend, cases, args.size, args.out)
+        worker(rank, nproc, init, args.device, backend, cases, size, args.out)
         return 0
     torch.set_num_threads(1)
     if args.device == "cuda":
@@ -693,9 +695,9 @@ def main(argv: list[str]) -> int:
 
         cuda_kernels.build()  # once, before the ranks load the libraries
     with tempfile.TemporaryDirectory() as out:
-        ranks = launch(args.nproc, out, args.device, backend, cases, args.size)
+        ranks = launch(args.nproc, out, args.device, backend, cases, size)
     for name in cases:
-        want = run_case(name, None, args.device, SIZES[args.size])
+        want = run_case(name, None, args.device, SIZES[size])
         for rank, res in enumerate(ranks):
             got = outputs(res[name])
             if name == "too_many_shards":

@@ -13,16 +13,15 @@ own PRNG keys, so its numbers differ, and a test that compares the two
 replaces these functions with JAX's draws. A CPU generator gives the same
 draws whatever device the data is on.
 
-Under :func:`sharded_draws` (a data-parallel step, each rank holding one
-slice of the global batch) every per-sample draw is made for the global
-batch, in the order one process makes it, and the rank keeps its slice: each
-sample gets the numbers it gets in one process.
+A data-parallel step hands the draws a :class:`ShardedGenerator` (each
+rank holding one slice of the global batch): every per-sample draw is then
+made for the global batch, in the order one process makes it, and the rank
+keeps its slice, so each sample gets the numbers it gets in one process.
 """
 
 from __future__ import annotations
 
-import contextlib
-from typing import Iterator
+from typing import Callable, NamedTuple, Union
 
 import torch
 from torch import Tensor
@@ -36,36 +35,32 @@ _MODES = 8
 _REF_AUG_WEIGHTS = (32.0, 12.0, 12.0, 12.0, 12.0, 12.0, 12.0, 12.0, 12.0)
 
 
-#: ``(index, count)``: this rank's slice of a batch split evenly over
-#: ``count`` ranks, while :func:`sharded_draws` is on
-_shard: tuple[int, int] | None = None
+class ShardedGenerator(NamedTuple):
+    """``generator`` drawing for the ``index``-th of ``count`` equal slices of
+    the global batch: a per-sample draw for ``n`` samples is made for
+    ``n * count`` and the slice kept (:func:`per_sample`)."""
+
+    generator: torch.Generator
+    index: int
+    count: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
 
 
-@contextlib.contextmanager
-def sharded_draws(index: int, count: int) -> Iterator[None]:
-    """Per-sample draws for the ``index``-th of ``count`` equal slices of the
-    global batch: a draw for ``n`` samples is made for ``n * count`` and the
-    slice kept (:func:`global_rows`, :func:`local_rows`)."""
-    global _shard
-    before, _shard = _shard, (index, count)
-    try:
-        yield
-    finally:
-        _shard = before
+#: what the draw functions take: a generator, or one rank's share of it
+Draws = Union[torch.Generator, ShardedGenerator]
 
 
-def global_rows(n: int) -> int:
-    """The global batch size of a per-sample draw for ``n`` local samples."""
-    return n if _shard is None else n * _shard[1]
-
-
-def local_rows(t: Tensor) -> Tensor:
-    """This rank's slice of a per-sample draw made for the global batch."""
-    if _shard is None:
-        return t
-    index, count = _shard
-    m = t.shape[0] // count
-    return t[index * m:(index + 1) * m]
+def per_sample(generator: Draws, n: int,
+               draw: Callable[[torch.Generator, int], Tensor]) -> Tensor:
+    """``draw(gen, rows)`` for ``n`` samples: for a :class:`ShardedGenerator`,
+    made for the global batch and this rank's slice kept."""
+    if not isinstance(generator, ShardedGenerator):
+        return draw(generator, n)
+    gen, index, count = generator
+    return draw(gen, n * count)[index * n:(index + 1) * n]
 
 
 def apply_mode(img: Tensor, mode: int) -> Tensor:
@@ -76,13 +71,13 @@ def apply_mode(img: Tensor, mode: int) -> Tensor:
     return torch.flip(out, dims=(-3,)) if mode % 2 else out
 
 
-def draw_modes(generator: torch.Generator, n: int) -> Tensor:
+def draw_modes(generator: Draws, n: int) -> Tensor:
     """``n`` dihedral modes, uniform over 0-7 (int64, generator's device)."""
-    return local_rows(torch.randint(0, _MODES, (global_rows(n),), generator=generator,
-                                    device=generator.device))
+    return per_sample(generator, n, lambda g, rows: torch.randint(
+        0, _MODES, (rows,), generator=g, device=g.device))
 
 
-def augment_batch(generator: torch.Generator, batch: Tensor) -> Tensor:
+def augment_batch(generator: Draws, batch: Tensor) -> Tensor:
     """A random dihedral transform per sample of ``(N, ..., H, W, C)``: each
     mode's transform of the whole batch, selected per sample (no host sync)."""
     modes = draw_modes(generator, batch.shape[0]).to(batch.device)
@@ -93,20 +88,23 @@ def augment_batch(generator: torch.Generator, batch: Tensor) -> Tensor:
     return out
 
 
-def draw_choice(generator: torch.Generator) -> int:
+def draw_choice(generator: Draws) -> int:
     """One of :func:`normalize_augment`'s 9 transforms, with the reference's
     weights."""
+    if isinstance(generator, ShardedGenerator):  # one draw for the whole batch
+        generator = generator.generator
     w = torch.tensor(_REF_AUG_WEIGHTS, dtype=torch.float32, device=generator.device)
     return int(torch.multinomial(w / 148.0, 1, generator=generator))
 
 
-def draw_offsets(generator: torch.Generator, n: int) -> Tensor:
+def draw_offsets(generator: Draws, n: int) -> Tensor:
     """``n`` standard normal draws: ``add_csnt``'s per-sample offsets before
     their ``5/255`` scale."""
-    return local_rows(torch.randn(global_rows(n), generator=generator, device=generator.device))
+    return per_sample(generator, n, lambda g, rows: torch.randn(rows, generator=g,
+                                                                device=g.device))
 
 
-def normalize_augment(generator: torch.Generator, batch: Tensor,
+def normalize_augment(generator: Draws, batch: Tensor,
                       ctrl_fr_idx: int | None = None) -> tuple[Tensor, Tensor]:
     """The reference's ``normalize_augment`` (``packages/DDnet/utils.py:
     47-94``): scale a ``(N, F, H, W, C)`` clip batch from [0, 255] to [0, 1],
@@ -125,20 +123,20 @@ def normalize_augment(generator: torch.Generator, batch: Tensor,
     return out, out[:, c]
 
 
-def random_sigma(generator: torch.Generator, n: int, lo: float, hi: float) -> Tensor:
+def random_sigma(generator: Draws, n: int, lo: float, hi: float) -> Tensor:
     """Per-sample noise standard deviation, uniform in [lo, hi] (already
     /255-scaled), float32 on the generator's device."""
-    u = local_rows(torch.rand(global_rows(n), generator=generator, device=generator.device))
+    u = per_sample(generator, n, lambda g, rows: torch.rand(rows, generator=g, device=g.device))
     return u * (hi - lo) + lo
 
 
-def draw_noise(generator: torch.Generator, shape: tuple[int, ...]) -> Tensor:
+def draw_noise(generator: Draws, shape: tuple[int, ...]) -> Tensor:
     """Standard normal noise of ``shape`` (float32, generator's device)."""
-    return local_rows(torch.randn((global_rows(shape[0]), *shape[1:]), generator=generator,
-                                  device=generator.device))
+    return per_sample(generator, shape[0], lambda g, rows: torch.randn(
+        (rows, *shape[1:]), generator=g, device=g.device))
 
 
-def add_gaussian_noise(generator: torch.Generator, x: Tensor, sigma: Tensor) -> Tensor:
+def add_gaussian_noise(generator: Draws, x: Tensor, sigma: Tensor) -> Tensor:
     """``x`` plus N(0, sigma^2) noise; ``sigma`` broadcasts per leading sample."""
     sig = torch.as_tensor(sigma, device=x.device).reshape(-1, *([1] * (x.dim() - 1)))
     return x + sig * draw_noise(generator, tuple(x.shape)).to(device=x.device, dtype=x.dtype)

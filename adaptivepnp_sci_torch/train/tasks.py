@@ -20,8 +20,8 @@ and, for these tasks' own, :func:`draw_fraction`, :func:`draw_coin` and
 :func:`draw_probe`: one function per kind of draw, for tests to replace with
 the JAX package's draws. The Bernoulli and the uniform of the mismatched-
 sigma fraction are separate draws, as the JAX package keeps them on separate
-keys. Each is a per-sample draw of the global batch under
-:func:`~adaptivepnp_sci_torch.train.augment.sharded_draws`.
+keys. Each is a per-sample draw of the global batch when the generator is a
+:class:`~adaptivepnp_sci_torch.train.augment.ShardedGenerator`.
 
 The penalties run the network again without touching the step's BatchNorm
 statistics: the Lipschitz penalty's second train-mode forward under
@@ -53,29 +53,31 @@ class TrainTask(NamedTuple):
 
     name: str
     model: nn.Module
-    loss_fn: Callable[[nn.Module, torch.Generator, Any], Tensor]
+    loss_fn: Callable[[nn.Module, augment.Draws, Any], Tensor]
 
 
-def draw_fraction(generator: torch.Generator, n: int) -> Tensor:
+def _uniform(g: torch.Generator, rows: int) -> Tensor:
+    return torch.rand(rows, generator=g, device=g.device)
+
+
+def draw_fraction(generator: augment.Draws, n: int) -> Tensor:
     """The mismatched-sigma fraction per sample: 1 with probability 1/2,
     else uniform in [0, 1); the coin and the uniform are separate draws."""
-    dev, rows = generator.device, augment.global_rows(n)
-    coin = augment.local_rows(torch.rand(rows, generator=generator, device=dev)) < 0.5
-    u = augment.local_rows(torch.rand(rows, generator=generator, device=dev))
+    coin = augment.per_sample(generator, n, _uniform) < 0.5
+    u = augment.per_sample(generator, n, _uniform)
     return torch.where(coin, torch.ones_like(u), u)
 
 
-def draw_coin(generator: torch.Generator, n: int) -> Tensor:
+def draw_coin(generator: augment.Draws, n: int) -> Tensor:
     """``demosaic_aug``'s per-sample fair coin (bool)."""
-    rows = augment.global_rows(n)
-    return augment.local_rows(torch.rand(rows, generator=generator, device=generator.device)) < 0.5
+    return augment.per_sample(generator, n, _uniform) < 0.5
 
 
-def draw_probe(generator: torch.Generator, shape: tuple[int, ...]) -> Tensor:
+def draw_probe(generator: augment.Draws, shape: tuple[int, ...]) -> Tensor:
     """Standard normal probe directions: the Lipschitz perturbation (before
     its 0.02 scale), the power iteration's start, the Jacobian direction."""
-    return augment.local_rows(torch.randn((augment.global_rows(shape[0]), *shape[1:]),
-                                          generator=generator, device=generator.device))
+    return augment.per_sample(generator, shape[0], lambda g, rows: torch.randn(
+        (rows, *shape[1:]), generator=g, device=g.device))
 
 
 def _to(t: Tensor, like: Tensor) -> Tensor:
@@ -113,7 +115,7 @@ def _buffers(net: nn.Module) -> dict[str, Tensor]:
 
 def ffdnet_task(model: nn.Module,
                 sigma_range: tuple[float, float] = (0.0, 75 / 255)) -> TrainTask:
-    def loss_fn(net: nn.Module, generator: torch.Generator, clean: Tensor) -> Tensor:
+    def loss_fn(net: nn.Module, generator: augment.Draws, clean: Tensor) -> Tensor:
         clean = augment.augment_batch(generator, clean)
         sigma = _to(augment.random_sigma(generator, clean.shape[0], *sigma_range), clean)
         noisy = augment.add_gaussian_noise(generator, clean, sigma)
@@ -150,7 +152,7 @@ def fastdvd_task(
       rounds of power iteration on J^T J.
     """
 
-    def loss_fn(net: nn.Module, generator: torch.Generator, clips: Tensor) -> Tensor:
+    def loss_fn(net: nn.Module, generator: augment.Draws, clips: Tensor) -> Tensor:
         start = _buffers(net) if spectral_penalty > 0 else None
         clips = augment.augment_batch(generator, clips)
         n, f, h, w, _ = clips.shape
@@ -207,7 +209,7 @@ def fastdvd_distill_task(model: nn.Module, teacher: Callable[[Tensor, Tensor], T
     random unit direction ``u``, both eval-mode operators (the student's with
     the running statistics of the start of the step)."""
 
-    def loss_fn(net: nn.Module, generator: torch.Generator, batch: Any) -> Tensor:
+    def loss_fn(net: nn.Module, generator: augment.Draws, batch: Any) -> Tensor:
         clips, sigmas, needs_noise = batch
         start = _buffers(net) if jac_weight > 0 else None
         clips = augment.augment_batch(generator, clips)
@@ -236,7 +238,7 @@ def fastdvd_distill_task(model: nn.Module, teacher: Callable[[Tensor, Tensor], T
 
 
 def ddnet_task(model: nn.Module, sigma: float = 1 / 255) -> TrainTask:
-    def loss_fn(net: nn.Module, generator: torch.Generator, clips: Tensor) -> Tensor:
+    def loss_fn(net: nn.Module, generator: augment.Draws, clips: Tensor) -> Tensor:
         clips = augment.augment_batch(generator, clips)
         n, f, h, w, _ = clips.shape
         noisy = augment.add_gaussian_noise(

@@ -24,7 +24,6 @@ weights stay the same on every rank. Rank 0 alone writes checkpoints.
 
 from __future__ import annotations
 
-import contextlib
 import os
 from dataclasses import dataclass
 from typing import Any, Callable, Iterator, Mapping
@@ -140,18 +139,17 @@ class Trainer:
         rank: the step runs on this rank's slice and returns the global
         batch's loss."""
         mesh = self.config.mesh
-        draws = contextlib.nullcontext()
+        draws: augment.Draws = self.generator
         if mesh is not None:
             batch = _local_batch(batch, mesh)
-            draws = augment.sharded_draws(mesh.axis_index(_BATCH_AXES),
-                                          mesh.axis_size(_BATCH_AXES))
+            draws = augment.ShardedGenerator(self.generator, mesh.axis_index(_BATCH_AXES),
+                                             mesh.axis_size(_BATCH_AXES))
         batch = _to_device(batch, self.device)
         for group in self.optimizer.param_groups:
             group["lr"] = self.learning_rate(self.step)
         with full_f32():
             self.optimizer.zero_grad(set_to_none=True)
-            with draws:
-                loss = self.task.loss_fn(self.net, self.generator, batch)
+            loss = self.task.loss_fn(self.net, draws, batch)
             loss.backward()
             if mesh is not None:
                 reduce_gradients(self.net.parameters(), mesh, _BATCH_AXES, average=True)

@@ -47,7 +47,8 @@ sharded prior, the tiled and batched drivers' ``mesh``) on 2 ranks sharing
 the card through gloo and at world size 1 through NCCL, against each other
 and the CPU plain path at 64x64x8 (``parallel_parity``); at full width on 2
 ranks: the bf16 prior at 512^2, the ``tiled`` phase's 2048^2 snapshot with its
-tile groups over the ranks, a FastDVDnet training step (``parallel``); and
+tile groups over the ranks against that phase's one-process run, a FastDVDnet
+training step (``parallel``, which needs ``tiled``); and
 the native ``.npy`` prefetch ring (built with g++, 1 GiB streamed) and a
 ``torch.profiler`` trace of a flagship step (``host``).
 Each phase prints one JSON line; any failure exits nonzero. The last line is
@@ -308,10 +309,17 @@ PARALLEL_LAUNCHES = {"prior_full": _launches(convpair=7 * 8),
                      "tiled_full": _launches(40 + 4 * 36, 40, 8 * 36 * 8),
                      "train_full": _launches()}
 #: the 2-rank snapshot against the one-process ``tiled`` run (tile_chunk 4):
-#: per-frame PSNR (dB); the adapted weights within Adam's opposite-sign bound,
-#: 2 lr x 16 steps (4 groups x 2 triggers x 2 steps at lr 2e-7)
-PARALLEL_TILED_DB = 0.01
-PARALLEL_TILED_DW = 2 * 16 * 2e-7
+#: per-frame PSNR (dB), and the adaptation's weight change as a fraction of
+#: the one-process change (``||w_rank - w_one|| / ||w_one - w_start||``). A
+#: sound 2-rank run read 0.0 dB and bit-identical weights; a run adapting in
+#: another direction (the one-process run with tile_chunk 2 against 4) read
+#: 0.028 dB, and its weight fraction is printed beside each run
+#: (``wrong_run``). Adam moves a weight by about its lr whatever the
+#: gradient's size, so a summation order that flips a near-zero gradient's
+#: sign parts single weights by 2 lr a step; a fraction of the norm holds the
+#: direction and leaves room for such weights
+PARALLEL_TILED_DB = 1e-3
+PARALLEL_TILED_DW_FRACTION = 1e-3
 #: host plumbing: ~1 GiB of .npy clips streamed through the native ring
 HOST_NPY = dict(files=64, shape=(4, 1024, 1024))
 
@@ -336,6 +344,13 @@ def scenes_launches(name: str, mode: str, n_meas: int, lowp: bool) -> dict:
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def _flat_variables(variables: dict) -> np.ndarray:
+    """The floating-point entries of a state dict, by sorted key, as one
+    float32 vector (the order of ``multihost_validation``'s results)."""
+    return np.concatenate([variables[k].reshape(-1).float().cpu().numpy()
+                           for k in sorted(variables) if variables[k].is_floating_point()])
 
 
 def emit(phase: str, **fields) -> None:
@@ -540,6 +555,8 @@ def main(argv: list[str]) -> int:
               "train", "scenes", "parallel"}
     if "kernels" in phases and not needed <= phases:
         ap.error(f"the kernels phase needs the {', '.join(sorted(needed))} phases")
+    if "parallel" in phases and "tiled" not in phases:
+        ap.error("the parallel phase needs the tiled phase (its one-process reference)")
     from adaptivepnp_sci_torch import (
         ADMMConfig,
         AdaptConfig,
@@ -1372,10 +1389,10 @@ def main(argv: list[str]) -> int:
                         secs.append(dt)
                         groups.append(list(group_ms))
                 peak = torch.cuda.max_memory_allocated()
-                if chunk == 4:
-                    report["tiled_chunk4"] = {
-                        "psnr": res.psnr_per_frame.cpu().numpy(), "seconds": secs[-1],
-                        "variables": {k: v.cpu() for k, v in res.variables.items()}}
+                # the ``parallel`` phase's reference (4) and its wrong run (2)
+                report[f"tiled_chunk{chunk}"] = {
+                    "psnr": res.psnr_per_frame.cpu().numpy(), "seconds": secs[-1],
+                    "variables": _flat_variables(res.variables)}
                 require(tuple(res.x_bayer.shape) == (8, size, size)
                         and tuple(res.x_rgb.shape) == (8, size, size, 3), "tiled: shapes")
                 require(bool(torch.isfinite(res.x_bayer).all() & torch.isfinite(res.x_rgb).all()),
@@ -2223,22 +2240,19 @@ def main(argv: list[str]) -> int:
              peak_mem_bytes_per_rank=peaks["prior_full"], **card)
         require(d_prior <= PARALLEL_PARITY_BAR["bf16"], f"parallel prior_full: {d_prior}")
 
-        # the tiled snapshot: against the one-process tile_chunk=4 run
-        ref = report.get("tiled_chunk4")
-        if ref is None:
-            one = mv.run_case("tiled_full", None, "cuda", full)
-            ref = {"psnr": one["psnr"], "seconds": float(one["seconds_per_snapshot"]),
-                   "variables": None, "variables_flat": one["variables"]}
-        ref_flat = (ref["variables_flat"] if ref.get("variables") is None
-                    else np.concatenate([ref["variables"][k].reshape(-1).float().numpy()
-                                         for k in sorted(ref["variables"])
-                                         if ref["variables"][k].is_floating_point()]))
-        start = np.concatenate([fastdvd_params[k].reshape(-1).float().numpy()
-                                for k in sorted(fastdvd_params)
-                                if fastdvd_params[k].is_floating_point()])
+        # the tiled snapshot: against the one-process tile_chunk=4 run, and
+        # that run against tile_chunk=2 (a run that adapts in another direction)
+        ref, wrong = report["tiled_chunk4"], report["tiled_chunk2"]
+        start = _flat_variables(fastdvd_params)
+        step = np.linalg.norm(ref["variables"] - start)
+
+        def dw_fraction(w):
+            return float(np.linalg.norm(w - ref["variables"]) / step)
+
         tf = [r["tiled_full"] for r in ranks]
         db = max(float(np.abs(t["psnr"] - ref["psnr"]).max()) for t in tf)
-        dw = max(float(np.abs(t["variables"] - ref_flat).max()) for t in tf)
+        dw = max(float(np.abs(t["variables"] - ref["variables"]).max()) for t in tf)
+        dw_frac = max(dw_fraction(t["variables"]) for t in tf)
         moved = [float(np.abs(t["variables"] - start).max()) for t in tf]
         same = bool(np.array_equal(tf[0]["variables"], tf[1]["variables"]))
         k3 = sum(int(t["launches__convpair"]) for t in tf)
@@ -2249,8 +2263,12 @@ def main(argv: list[str]) -> int:
              seconds_per_snapshot_one_process=ref["seconds"],
              psnr_db=[float(t["psnr"].mean()) for t in tf],
              psnr_db_one_process=float(np.mean(ref["psnr"])), max_dpsnr_db=db,
-             max_abs_dw_one_process=dw, weights_moved=moved, weights_same_on_ranks=same,
-             bar={"db": PARALLEL_TILED_DB, "dw": PARALLEL_TILED_DW},
+             max_abs_dw_one_process=dw, dw_fraction_one_process=dw_frac,
+             weights_moved=moved, weights_same_on_ranks=same,
+             bar={"db": PARALLEL_TILED_DB, "dw_fraction": PARALLEL_TILED_DW_FRACTION},
+             wrong_run={"run": "one process, tile_chunk 2",
+                        "max_dpsnr_db": float(np.abs(wrong["psnr"] - ref["psnr"]).max()),
+                        "dw_fraction": dw_fraction(wrong["variables"])},
              launches_per_rank=[{k: int(t[f"launches__{k}"]) for k in _K} for t in tf],
              convpair_sum_over_ranks=k3,
              warmup=f"one group of {mv.FULL_TILE_CHUNK} tiles on a {full.tiled // 2}^2 scene",
@@ -2259,8 +2277,8 @@ def main(argv: list[str]) -> int:
              warmup_collectives_by_key_rank0=tf[0]["warmup_collectives_by_key"].tolist(),
              case_seconds_per_rank=[float(t["seconds"]) for t in tf],
              peak_mem_bytes_per_rank=peaks["tiled_full"], **card)
-        require(db <= PARALLEL_TILED_DB and dw <= PARALLEL_TILED_DW,
-                f"parallel tiled_full: {db} dB, weights {dw}")
+        require(db <= PARALLEL_TILED_DB and dw_frac <= PARALLEL_TILED_DW_FRACTION,
+                f"parallel tiled_full: {db} dB, weights {dw_frac} of the adaptation's change")
         require(same and min(moved) > 0, f"parallel tiled_full: weights {same}, moved {moved}")
         require(k3 == TILED_LAUNCHES[4]["convpair"], f"parallel tiled_full: K3 {k3} over ranks")
 

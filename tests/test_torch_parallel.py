@@ -27,6 +27,8 @@ from adaptivepnp_sci_torch import multihost_validation as mv
 from adaptivepnp_sci_torch.models import convert as tconvert
 from adaptivepnp_sci_torch.parallel import make_mesh as tmake_mesh
 from adaptivepnp_sci_torch.parallel.distributed import default_backend, global_mesh
+from adaptivepnp_sci_torch.train import augment as taugment
+from adaptivepnp_sci_torch.train import tasks as ttasks
 from adaptivepnp_sci_torch.solvers.priors import window_indices
 from adaptivepnp_sci_tpu.data.synthetic import make_scene
 from adaptivepnp_sci_tpu.models.fastdvdnet import FastDVDnet
@@ -195,6 +197,38 @@ def test_dp_trainer_matches_one_process_trainer(ranks, oracle):
         start = mv._flat([init[k] for k in sorted(init)
                           if k.endswith(("weight", "bias")) and "running" not in k])
         assert np.abs(got["params"] - start).max() > 0  # the steps moved the weights
+
+
+#: each per-sample draw of the training tasks, for ``n`` samples
+SHARDED_DRAWS = {
+    "modes": lambda g, n: taugment.draw_modes(g, n),
+    "offsets": lambda g, n: taugment.draw_offsets(g, n),
+    "sigma": lambda g, n: taugment.random_sigma(g, n, 5 / 255, 55 / 255),
+    "noise": lambda g, n: taugment.draw_noise(g, (n, 4, 4, 3)),
+    "fraction": lambda g, n: ttasks.draw_fraction(g, n),
+    "coin": lambda g, n: ttasks.draw_coin(g, n),
+    "probe": lambda g, n: ttasks.draw_probe(g, (n, 2, 4, 4, 3)),
+}
+
+
+@pytest.mark.parametrize("kind", list(SHARDED_DRAWS))
+def test_sharded_generator_draws_the_global_batch(kind):
+    """A ``ShardedGenerator`` for each of 2 ranks (one seed) draws, bit for
+    bit, its rows of what one process draws for the global batch of 6, and
+    leaves its generator where the one process leaves its own; a plain
+    generator draws for its 3 samples alone."""
+    draw = SHARDED_DRAWS[kind]
+    whole = torch.Generator().manual_seed(5)
+    want = draw(whole, 6)
+    got = []
+    for rank in range(2):
+        g = torch.Generator().manual_seed(5)
+        got.append(draw(taugment.ShardedGenerator(g, rank, 2), 3))
+        assert torch.equal(g.get_state(), whole.get_state())
+    assert torch.equal(torch.cat(got), want)
+    alone = draw(torch.Generator().manual_seed(5), 3)
+    assert torch.equal(alone, draw(taugment.ShardedGenerator(torch.Generator().manual_seed(5),
+                                                             0, 1), 3))
 
 
 @pytest.mark.parametrize("name", ["tiled", "tiled_guard", "tiled_dm"])
