@@ -21,13 +21,21 @@ Those items can also be spread over ranks (:class:`ItemShard`): each rank
 divides its items' losses by the count of all of them and the gradients are
 summed over the ranks, and every rank makes the draws of all the items, in
 item order, and keeps its own, so each item draws what it draws in one
-process.
+process. The frames of one measurement can be spread over ranks too
+(:class:`FrameShard`): the loss's frame sum then runs over every rank's
+frames (:func:`~adaptivepnp_sci_torch.parallel.mesh.gathered_sum`), the
+draws are made for the whole cube and each rank keeps its frames, and the
+prior sums its parameters' gradients over the ranks.
+
+:func:`trigger_draws` is the one function that makes a trigger's draws: the
+adaptation takes its share of them, and a rank that skips a measurement of a
+batch makes them to keep its generator in step.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Any, Callable, Mapping, Sequence
+from typing import TYPE_CHECKING, Any, Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +43,13 @@ import torch.nn as nn
 from torch import Tensor
 
 from adaptivepnp_sci_torch.ops import bayer, corruption, physics
+from adaptivepnp_sci_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_sum,
+    all_reduce_tensors,
+    gather,
+    gathered_sum,
+)
 
 if TYPE_CHECKING:
     from adaptivepnp_sci_torch.solvers.priors import Prior
@@ -132,26 +147,30 @@ def measurement_loss_fn(
     phi_packed: Tensor,
     y_full: Tensor,
     phi_full: Tensor,
+    frames: "FrameShard | None" = None,
 ) -> Callable[[], Tensor]:
     """The self-supervised loss closure of one adaptation trigger, over the
     current parameters of ``net``: the MSE of the re-mosaicked denoiser
     output through the forward model against the measurement, on the packed
     planes ('packed4', FFDNet) or on the full-resolution mosaic ('bayer1',
     FastDVDnet). The denoiser runs through ``prior.apply_adapt`` when the
-    prior has one."""
+    prior has one. ``frames``: ``rgb_in`` and the masks hold this rank's
+    frames, and the forward model's frame sum runs over every rank's
+    (:meth:`FrameShard.sum`)."""
     apply = prior.apply_adapt or prior.apply
+    fwd = physics.forward if frames is None else frames.forward
     if prior.loss_mode == "packed4":
 
         def loss() -> Tensor:
             xhat = apply(net, rgb_in, sigma)
-            pred = physics.forward(bayer.rggb_subsample(xhat), phi_packed)
+            pred = fwd(bayer.rggb_subsample(xhat), phi_packed)
             return torch.mean((pred - y_packed) ** 2)
 
     elif prior.loss_mode == "bayer1":
 
         def loss() -> Tensor:
             xhat = apply(net, rgb_in, sigma)
-            pred = physics.forward(bayer.mosaic(xhat), phi_full)
+            pred = fwd(bayer.mosaic(xhat), phi_full)
             return torch.mean((pred - y_full) ** 2)
 
     else:
@@ -219,6 +238,99 @@ class ItemShard:
         return t[self.start:self.start + n]
 
 
+@dataclass(frozen=True)
+class FrameShard:
+    """This rank's frames of a measurement whose ``B``-frame cube is spread
+    over the ranks of ``mesh``'s ``frame`` axis: frames ``start`` to ``start
+    + n`` of ``total``, consecutive (the slice of
+    :func:`~adaptivepnp_sci_torch.parallel.mesh.shard`). Ranks of other
+    ``data`` coordinates hold the same frames of their own copy."""
+
+    mesh: Mesh
+    start: int
+    n: int
+    total: int
+
+    @classmethod
+    def of(cls, mesh: Mesh | None, total: int) -> "FrameShard | None":
+        """This rank's shard of ``total`` frames; None without a mesh or with
+        one rank on its ``frame`` axis (the one-process path)."""
+        if mesh is None or mesh.axis_size("frame") == 1:
+            return None
+        ranks = mesh.axis_size("frame")
+        if total % ranks:
+            raise ValueError(f"{total} frames do not split over the mesh's {ranks} frame ranks")
+        n = total // ranks
+        return cls(mesh, mesh.axis_index("frame") * n, n, total)
+
+    def local(self, t: Tensor, dim: int = 0) -> Tensor:
+        """This rank's frames of ``t``, whose ``dim`` holds all of them."""
+        return t.narrow(dim, self.start, self.n)
+
+    def gather(self, t: Tensor, dim: int = 0) -> Tensor:
+        """Every rank's frames of ``t`` along ``dim``, in frame order."""
+        return gather(t, self.mesh, "frame", dim)
+
+    def sum(self, t: Tensor, dim: int = 0) -> Tensor:
+        """The sum of every rank's per-frame terms ``t`` over ``dim``, in frame
+        order on every rank, differentiable (:func:`gathered_sum`)."""
+        return gathered_sum(t, self.mesh, "frame", dim)
+
+    def forward(self, x: Tensor, phi: Tensor) -> Tensor:
+        """The forward model ``sum_t phi_t x_t`` over every rank's frames."""
+        return self.sum(x * phi, 0)
+
+    def all_reduce(self, tensors: list[Tensor]) -> None:
+        """Sum ``tensors`` (the parameters' gradients) over the frame ranks, in place."""
+        all_reduce_tensors(tensors, self.mesh, "frame")
+
+    def psnr(self, ref: Tensor, img: Tensor, data_range: float = 1.0) -> Tensor:
+        """The PSNR of the whole cube from this rank's frames of ``ref`` and
+        ``img``: the squared errors' sum all-reduced over the ranks."""
+        d = ref.to(torch.float32) - img.to(torch.float32)
+        sse = all_reduce_sum(torch.sum(d ** 2), self.mesh, "frame")
+        mse = sse / (d.numel() * (self.total // self.n))
+        return 10.0 * torch.log10(data_range**2 / torch.clamp(mse, min=1e-12))
+
+
+class TriggerDraws(NamedTuple):
+    """The draws of one adaptation trigger for its whole input shape:
+    ``noise`` (the input noise, unscaled), ``marks`` (the corruption of an
+    input of ones: 1 where a pixel is kept, the dropped value elsewhere) and
+    ``offsets`` (one crop window per item); None where the trigger draws
+    none of them. On the generator's device."""
+
+    noise: Tensor | None
+    marks: Tensor | None
+    offsets: list[tuple[int, int]] | None
+
+
+def trigger_draws(prior: "Prior", adapt_cfg: AdaptConfig, generator: torch.Generator | None,
+                  shape: tuple[int, ...]) -> TriggerDraws:
+    """Every draw of one adaptation trigger, for an input of ``shape`` (``(B,
+    H, W, 3)``, or ``(N, B, H, W, 3)`` with an item axis: every item and
+    frame of the measurements that share the trigger), in the order the
+    trigger takes them: the input noise, the corruption masks item by item,
+    the crop offsets item by item."""
+    noise = marks = offsets = None
+    if prior.adapt_noise_std > 0:
+        if generator is None:
+            raise ValueError("the adaptation noise needs a torch.Generator")
+        noise = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=generator.device)
+    if prior.adapt_mask is not None:
+        ones = torch.ones(shape, device=generator.device if generator is not None else "cpu")
+        marks = mask_input(generator, ones, prior.adapt_mask)
+    if adapt_cfg.crop is not None:
+        if generator is None:
+            raise ValueError("the adaptation crop needs a torch.Generator")
+        h, w = shape[-3:-1]
+        check_crop(int(adapt_cfg.crop), h, w)
+        offsets = [crop_offsets(generator, h, w, int(adapt_cfg.crop))
+                   for _ in range(shape[0] if len(shape) == 5 else 1)]
+    return TriggerDraws(noise, marks, offsets)
+
+
 def carried_adam(net: nn.Module, adapt_cfg: AdaptConfig,
                  opt_state: Mapping[str, Any] | None = None) -> torch.optim.Adam | None:
     """The Adam that ``fresh_opt_per_trigger=False`` carries: over every
@@ -270,8 +382,11 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
 
     ``shard`` (:class:`ItemShard`): the ``N`` items are this rank's share of
     a group spread over ranks; the draws are made for the whole group and
-    the gradients summed over its ranks after each backward. A prior with
-    ``reduce_grads`` (frames spread over ranks) sums its gradients first."""
+    the gradients summed over its ranks after each backward. ``frames``
+    (:class:`FrameShard`): ``rgb_in`` and the masks hold this rank's frames;
+    the draws are made for all frames and the loss's frame sum runs over
+    every rank's. A prior with ``reduce_grads`` (frames spread over ranks)
+    sums its gradients first. :func:`trigger_draws` makes every draw."""
     check_adapt_supported(prior, adapt_cfg)
     stages = resolve_stages(adapt_cfg)
     filters = adapt_cfg.trainable_filter
@@ -280,55 +395,52 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
 
     def adapt(net: nn.Module, rgb_in: Tensor, sigma: Tensor, y_p: Tensor, phi_p: Tensor,
               y_f: Tensor, phi_f: Tensor, generator: torch.Generator | None = None,
-              opt: torch.optim.Adam | None = None, shard: ItemShard | None = None) -> None:
+              opt: torch.optim.Adam | None = None, shard: ItemShard | None = None,
+              frames: FrameShard | None = None) -> None:
         if not fresh and opt is None:
             raise ValueError("fresh_opt_per_trigger=False needs the carried Adam (carried_adam)")
         if shard is not None and rgb_in.dim() != 5:
             raise ValueError("an item shard needs the item axis (N, B, H, W, 3)")
         n_local = rgb_in.shape[0]
-        if prior.adapt_noise_std > 0:
-            if generator is None:
-                raise ValueError("the adaptation noise needs a torch.Generator")
-            shape = rgb_in.shape if shard is None else (shard.total, *rgb_in.shape[1:])
-            noise = torch.randn(shape, generator=generator, dtype=rgb_in.dtype,
-                                device=generator.device)
+        item_axis = rgb_in.dim() == 5
+        frame_dim = 1 if item_axis else 0
+        shape = list(rgb_in.shape)
+        if shard is not None:
+            shape[0] = shard.total
+        if frames is not None:
+            shape[frame_dim] = frames.total
+        draws = trigger_draws(prior, adapt_cfg, generator, tuple(shape))
+
+        def mine(t: Tensor) -> Tensor:
+            # this rank's items and frames of a draw over the whole input
             if shard is not None:
-                noise = shard.local(noise, n_local)
-            rgb_in = rgb_in + prior.adapt_noise_std * noise.to(rgb_in.device)
-        if prior.adapt_mask is not None:
+                t = shard.local(t, n_local)
+            return t if frames is None else frames.local(t, frame_dim)
+
+        if draws.noise is not None:
+            rgb_in = rgb_in + prior.adapt_noise_std * mine(draws.noise).to(rgb_in.device)
+        if draws.marks is not None:
             # the reference's masked-input ablation (gen_masked_data)
-            if shard is None:
-                rgb_in = mask_input(generator, rgb_in, prior.adapt_mask)
-            else:
-                # every item's mask in item order; the other ranks' items'
-                # masks are drawn on this rank's first item and dropped
-                masked = [mask_input(generator, rgb_in[i - shard.start]
-                                     if 0 <= i - shard.start < n_local else rgb_in[0],
-                                     prior.adapt_mask) for i in range(shard.total)]
-                rgb_in = shard.local(torch.stack(masked), n_local)
+            marks = mine(draws.marks).to(rgb_in.device)
+            rgb_in = torch.where(marks == 1.0, rgb_in, marks)
         rgb_in = rgb_in.detach()
         items = ([(rgb_in, y_p, phi_p, y_f, phi_f)] if rgb_in.dim() == 4 else
                  [(rgb_in[i], y_p[i], phi_p[i] if phi_f.dim() == 4 else phi_p, y_f[i],
                    phi_f[i] if phi_f.dim() == 4 else phi_f) for i in range(rgb_in.shape[0])])
-        if crop is not None:
+        if draws.offsets is not None:
             # the loss on a Bayer-aligned window of each item: the forward
             # model is pixel-separable, so the frames, y and phi are sliced alike
-            if generator is None:
-                raise ValueError("the adaptation crop needs a torch.Generator")
-            h, w = phi_f.shape[-2:]
-            check_crop(crop, h, w)
-            cropped = []
-            offsets = [crop_offsets(generator, h, w, crop)
-                       for _ in range(len(items) if shard is None else shard.total)]
+            offsets = draws.offsets
             if shard is not None:
                 offsets = offsets[shard.start:shard.start + n_local]
+            cropped = []
             for (rgb_i, _, _, y_i, phi_i), (oy, ox) in zip(items, offsets):
                 win = (slice(oy, oy + crop), slice(ox, ox + crop))
                 y_c, phi_c = y_i[win], phi_i[(slice(None), *win)]
                 cropped.append((rgb_i[(slice(None), *win)], bayer.pack(y_c), bayer.pack(phi_c),
                                 y_c, phi_c))
             items = cropped
-        losses = [measurement_loss_fn(prior, net, r, sigma, yp, pp, yf, pf)
+        losses = [measurement_loss_fn(prior, net, r, sigma, yp, pp, yf, pf, frames)
                   for r, yp, pp, yf, pf in items]
         named = list(net.named_parameters())
         on = [filters is None or any(f in name for f in filters) for name, _ in named]

@@ -16,7 +16,16 @@ data-parallel FastDVDnet ``Trainer`` (train-mode BatchNorm over the global
 batch); a two-stage ADMM solve with the sharded prior, without and with one
 adaptation trigger; the tiled driver with its tiles over ranks (FFDNet with
 the raw guard, FastDVDnet with the held-out guard and adaptation noise, and
-the in-scan DDnet update); the batched driver. On the card (``--size card``,
+the in-scan DDnet update); the batched driver. Then the frame-sharded solve
+(``frame_*``: each measurement's frames over the ranks, every rank given the
+whole inputs and returning the whole result): ``two_stage_admm(mesh=)``
+with TV and ``gap_tv(mesh=)``, FFDNet adapting under the raw guard,
+FastDVDnet plain and adapting with noise, a crop and the held-out guard,
+DDnet adapted in the loop, ``reconstruct_single_dispatch(mesh=)``,
+``gap_deep(mesh=)``, ``gap_denoise_gray(mesh=)``, the adaptation loss's
+gradient (and the same with the frame sum's backward summed over the ranks,
+a run that must fail), and the refusals; and the adapting batched driver
+over ``data`` (``batched_adapt``). On the card (``--size card``,
 the default there) the cases add the bf16 prior (the conv-pair kernel) and
 run at 64x64 (the tiled driver at 128x128); ``--device cpu`` runs them at
 16x16 (``--size cpu``).
@@ -81,6 +90,24 @@ def small_ffdnet():
 
     torch.manual_seed(0)
     return FFDNet(nc=8, nb=3)
+
+
+def flax_style_ffdnet_params(nc: int, nb: int, seed: int) -> dict:
+    """FFDNet-color weights in Flax's default scheme, as numpy: LeCun fan-in
+    truncated-normal kernels (kh, kw, I, O) and zero biases, in Flax's
+    ``params/conv_{i}/{kernel,bias}`` layout."""
+    rng = np.random.default_rng(seed)
+    chans = [13] + [nc] * (nb - 1) + [12]
+    params = {}
+    for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
+        shape = (3, 3, cin, cout)
+        z = rng.standard_normal(shape)
+        while np.any(bad := np.abs(z) > 2.0):
+            z[bad] = rng.standard_normal(int(bad.sum()))
+        std = np.sqrt(1.0 / (9 * cin)) / 0.87962566103423978  # truncation correction
+        params[f"conv_{i}"] = {"kernel": (z * std).astype(np.float32),
+                               "bias": np.zeros(cout, np.float32)}
+    return {"params": params}
 
 
 def _flat(tensors) -> np.ndarray:
@@ -336,6 +363,320 @@ def case_batched(meshes, dev, sz):
     return {"x_bayer": _np(res.x_bayer), "psnr": _np(res.psnr_per_frame)}
 
 
+# ------------------------------------------------------ the frame-sharded solve
+#
+# Each case runs with the frame axis over the ranks (``meshes["frame"]``),
+# at world size 1 on a one-rank mesh (the one-process path), and without a
+# mesh as the oracle.
+
+#: the scene seed of the frame-sharded cases (the JAX package's
+#: ``test_solver_with_frame_sharded_inputs`` scene for ``frame_fastdvd``)
+FRAME_SEED = 13
+#: one trigger at k = 2: one Adam step at lr 2e-6
+FRAME_ADAPT = dict(lr=2e-6, update_per_iter=1, initial_iter=0, interval_iter=2)
+
+
+def _frame_mesh(meshes):
+    return meshes["frame"] if meshes else None
+
+
+def _admm_out(res) -> dict:
+    out = {"x_bayer": _np(res.x_bayer), "x_rgb": _np(res.x_rgb), "psnr": _np(res.psnr_per_frame),
+           "trace": _np(res.psnr_trace)}
+    if getattr(res, "resid_trace", None) is not None:
+        out["resid_trace"] = _np(res.resid_trace)
+    if isinstance(res.variables, dict):
+        out["variables"] = _state_flat(res.variables)
+    if getattr(res, "dm_variables", None) is not None:
+        out["dm_variables"] = _state_flat(res.dm_variables)
+    return out
+
+
+def case_frame_tv(meshes, dev, sz):
+    """ADMM-TV under the raw guard, and the GAP-TV warm start, over frames."""
+    from adaptivepnp_sci_torch import ADMMConfig, GapTVConfig, gap_tv, two_stage_admm
+    from adaptivepnp_sci_torch.data.synthetic import make_scene
+
+    sc = make_scene(b=8, h=sz.side, w=sz.side, seed=FRAME_SEED)
+    mesh = _frame_mesh(meshes)
+    res = two_stage_admm(sc.meas, sc.mask, ADMMConfig(sigma=(0.0,), iters=(3,), denoiser="tv",
+                                                      select_best=True),
+                         orig_bayer=sc.orig_bayer, device=dev, mesh=mesh)
+    warm = gap_tv(sc.meas, sc.mask, GapTVConfig(iters=5), orig_bayer=sc.orig_bayer, device=dev,
+                  mesh=mesh)
+    return {**_admm_out(res), "warm_x": _np(warm.x_bayer), "warm_psnr": _np(warm.psnr_per_frame),
+            "warm_trace": _np(warm.psnr_trace)}
+
+
+def case_frame_ffdnet(meshes, dev, sz):
+    """FFDNet adapting at k = 2 and 4 (the packed loss), the raw guard."""
+    from adaptivepnp_sci_torch import ADMMConfig, AdaptConfig, ffdnet_prior, two_stage_admm
+    from adaptivepnp_sci_torch.data.synthetic import make_scene
+
+    sc = make_scene(b=8, h=sz.side, w=sz.side, seed=FRAME_SEED)
+    net = small_ffdnet()
+    cfg = ADMMConfig(sigma=(25 / 255, 12 / 255), iters=(3, 2), adapt=AdaptConfig(**FRAME_ADAPT),
+                     select_best=True)
+    res = two_stage_admm(sc.meas, sc.mask, cfg, ffdnet_prior(net), net.state_dict(),
+                         orig_bayer=sc.orig_bayer, device=dev, mesh=_frame_mesh(meshes))
+    return _admm_out(res)
+
+
+def case_frame_fastdvd(meshes, dev, sz):
+    """FastDVDnet on ``weights/``, no adaptation (the JAX package's
+    frame-sharded solver test)."""
+    from adaptivepnp_sci_torch import ADMMConfig, FastDVDnet, fastdvd_prior, two_stage_admm
+    from adaptivepnp_sci_torch.data.synthetic import make_scene
+
+    sc = make_scene(b=8, h=sz.side, w=sz.side, seed=FRAME_SEED)
+    res = two_stage_admm(sc.meas, sc.mask, ADMMConfig(sigma=(12 / 255,), iters=(3,),
+                                                      denoiser="fastdvd"),
+                         fastdvd_prior(FastDVDnet()), _fastdvd_params(),
+                         orig_bayer=sc.orig_bayer, device=dev, mesh=_frame_mesh(meshes))
+    return _admm_out(res)
+
+
+def case_frame_fastdvd_adapt(meshes, dev, sz):
+    """FastDVDnet adapting at k = 2 and 4 with its input noise, the spatial
+    input mask and a crop of half the side, under the held-out guard (its
+    masked warm start 10 iterations); a CPU generator seeded with 0."""
+    from adaptivepnp_sci_torch import ADMMConfig, AdaptConfig, FastDVDnet, GapTVConfig, gap_tv
+    from adaptivepnp_sci_torch import fastdvd_prior, two_stage_admm
+    from adaptivepnp_sci_torch.data.synthetic import make_scene
+
+    sc = make_scene(b=8, h=sz.side, w=sz.side, seed=FRAME_SEED)
+    cfg = ADMMConfig(sigma=(12 / 255, 6 / 255), iters=(4, 2), denoiser="fastdvd",
+                     adapt=AdaptConfig(lr=2e-7, update_per_iter=2, initial_iter=0,
+                                       interval_iter=2, crop=sz.side // 2),
+                     select_best=True, select_best_holdout=0.05, select_best_warm_iters=10)
+    mesh = _frame_mesh(meshes)
+    warm = gap_tv(sc.meas, sc.mask, GapTVConfig(iters=10), device=dev, mesh=mesh)
+    res = two_stage_admm(sc.meas, sc.mask, cfg, fastdvd_prior(FastDVDnet(), adapt_mask=("s", 0.1)),
+                         _fastdvd_params(), x0_bayer=warm.x_bayer, orig_bayer=sc.orig_bayer,
+                         device=dev, mesh=mesh, generator=torch.Generator().manual_seed(0))
+    return _admm_out(res)
+
+
+def case_frame_ddnet(meshes, dev, sz):
+    """FFDNet with DDnet adapted in the loop (``dm_update``, the halo
+    windows)."""
+    from adaptivepnp_sci_torch import ADMMConfig, DDnet, ffdnet_prior, make_dm_spec
+    from adaptivepnp_sci_torch import two_stage_admm
+    from adaptivepnp_sci_torch.data.synthetic import make_scene
+    from adaptivepnp_sci_torch.models.convert import ddnet_from_flax, load_variables_npz
+
+    sc = make_scene(b=8, h=sz.side, w=sz.side, seed=FRAME_SEED)
+    net = small_ffdnet()
+    dd = ddnet_from_flax(load_variables_npz(str(WEIGHTS / "ddnet.npz")))
+    cfg = ADMMConfig(sigma=(25 / 255,), iters=(2,), demosaic_method="ddnet")
+    mesh = _frame_mesh(meshes)
+    res = two_stage_admm(sc.meas, sc.mask, cfg, ffdnet_prior(net), net.state_dict(),
+                         orig_bayer=sc.orig_bayer, dm_spec=make_dm_spec(DDnet(), lr=1e-6),
+                         dm_variables=dd, device=dev, mesh=mesh)
+    return _admm_out(res)
+
+
+def case_frame_dispatch(meshes, dev, sz):
+    """``reconstruct_single_dispatch``: a 10-iteration warm start, then FFDNet
+    adapting at k = 2 and 4."""
+    from adaptivepnp_sci_torch import (ADMMConfig, AdaptConfig, GapTVConfig, ffdnet_prior,
+                                       reconstruct_single_dispatch)
+    from adaptivepnp_sci_torch.data.synthetic import make_scene
+
+    sc = make_scene(b=8, h=sz.side, w=sz.side, seed=FRAME_SEED)
+    net = small_ffdnet()
+    res = reconstruct_single_dispatch(
+        sc.meas, sc.mask, GapTVConfig(iters=10),
+        ADMMConfig(sigma=(25 / 255, 12 / 255), iters=(3, 2), adapt=AdaptConfig(**FRAME_ADAPT)),
+        ffdnet_prior(net), net.state_dict(), orig=sc.orig_bayer, device=dev,
+        mesh=_frame_mesh(meshes))
+    return _admm_out(res)
+
+
+def case_frame_gap_deep(meshes, dev, sz):
+    """``gap_deep`` with FastDVDnet adapting at k = 2 (its input noise)."""
+    from adaptivepnp_sci_torch import (AdaptConfig, FastDVDnet, GapDeepConfig, fastdvd_prior,
+                                       gap_deep)
+    from adaptivepnp_sci_torch.data.synthetic import make_scene
+
+    sc = make_scene(b=8, h=sz.side, w=sz.side, seed=FRAME_SEED)
+    res = gap_deep(sc.meas, sc.mask, GapDeepConfig(sigma=(12 / 255,), iters=(3,),
+                                                   denoiser="fastdvd",
+                                                   adapt=AdaptConfig(**FRAME_ADAPT)),
+                   fastdvd_prior(FastDVDnet()), _fastdvd_params(), orig_bayer=sc.orig_bayer,
+                   device=dev, mesh=_frame_mesh(meshes))
+    return _admm_out(res)
+
+
+def case_frame_gray(meshes, dev, sz):
+    """The gray solver with TV, plain and accelerated."""
+    from adaptivepnp_sci_torch import GrayConfig, gap_denoise_gray
+    from adaptivepnp_sci_torch.data.synthetic import make_scene
+
+    sc = make_scene(b=8, h=sz.side, w=sz.side, seed=FRAME_SEED)
+    out = {}
+    for tag, acc in (("plain", False), ("accelerated", True)):
+        res = gap_denoise_gray(sc.meas, sc.mask, GrayConfig(iters=(5,), accelerate=acc),
+                               orig=sc.orig_bayer, device=dev, mesh=_frame_mesh(meshes))
+        out.update({f"{tag}_x": _np(res.x), f"{tag}_psnr": _np(res.psnr_per_frame),
+                    f"{tag}_trace": _np(res.psnr_trace)})
+    return out
+
+
+def _loss_grads(meshes, dev, sz, frames_cls):
+    """The adaptation loss and its gradient (after ``Prior.reduce_grads``)
+    in both loss modes, and one adaptation trigger's weights, with the frames
+    over the ranks as ``frames_cls`` shards them (None: one process)."""
+    from adaptivepnp_sci_torch import AdaptConfig, FastDVDnet, fastdvd_prior, ffdnet_prior
+    from adaptivepnp_sci_torch.adapt.online import make_adapt_fn, measurement_loss_fn
+    from adaptivepnp_sci_torch.ops import bayer
+    from adaptivepnp_sci_torch.solvers.priors import working_copy
+
+    rng = _rng(40)
+    b, side = 8, sz.side
+    rgb = torch.from_numpy(rng.random((b, side, side, 3), dtype=np.float32)).to(dev)
+    phi = torch.from_numpy((rng.random((b, side, side)) > 0.5).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.random((side, side), dtype=np.float32)).to(dev)
+    frames = None
+    if meshes is not None and meshes["frame"].axis_size("frame") > 1:
+        frames = frames_cls.of(meshes["frame"], b)
+    out = {}
+    net_ff = small_ffdnet()
+    for mode, prior, params in (("packed4", ffdnet_prior(net_ff), net_ff.state_dict()),
+                                ("bayer1", fastdvd_prior(FastDVDnet()), _fastdvd_params())):
+        if frames is not None:
+            prior = prior.frame_sharded(frames.mesh)
+        local = (lambda t: t) if frames is None else frames.local
+        x, ph = local(rgb), local(phi)
+        sigma = torch.tensor(12 / 255, device=dev)
+        net = working_copy(prior, params, dev)
+        with torch.enable_grad():
+            loss = measurement_loss_fn(prior, net, x, sigma, bayer.pack(y), bayer.pack(ph), y,
+                                       ph, frames)()
+            loss.backward()
+        grads = [p.grad for p in net.parameters()]
+        if prior.reduce_grads is not None:
+            prior.reduce_grads(grads)
+        out[f"{mode}_loss"] = _np(loss)
+        out[f"{mode}_grads"] = _flat(grads)
+        net = working_copy(prior, params, dev)
+        adapt = make_adapt_fn(prior, AdaptConfig(lr=2e-6, update_per_iter=2))
+        with torch.no_grad():
+            adapt(net, x, sigma, bayer.pack(y), bayer.pack(ph), y, ph,
+                  torch.Generator().manual_seed(0), frames=frames)
+        out[f"{mode}_variables"] = _state_flat(net.state_dict())
+    return out
+
+
+def case_frame_loss_grad(meshes, dev, sz):
+    from adaptivepnp_sci_torch.adapt.online import FrameShard
+
+    return _loss_grads(meshes, dev, sz, FrameShard)
+
+
+def case_frame_loss_grad_all_reduce_sum(meshes, dev, sz):
+    """``frame_loss_grad`` with the loss's frame sum taken by ``all_reduce_sum``,
+    whose backward sums every rank's upstream gradient: the gradient comes
+    out ``frame`` times too large. A run that must fail its comparison."""
+    from adaptivepnp_sci_torch.adapt.online import FrameShard
+    from adaptivepnp_sci_torch.parallel.mesh import all_reduce_sum
+
+    class SummedBackward(FrameShard):
+        def sum(self, t, dim=0):
+            return all_reduce_sum(torch.sum(t, dim=dim), self.mesh, "frame")
+
+    return _loss_grads(meshes, dev, sz, SummedBackward)
+
+
+def case_frame_refusals(meshes, dev, sz):
+    """What a frame-sharded solve refuses (more than one frame rank only):
+    the tiled driver, a ``demosaic_fn`` and a prior without a frame-sharded
+    form, each with ``NotImplementedError`` naming the frame axis; and DDnet
+    on one frame a rank, with the halo's "too many shards" ``ValueError``."""
+    from adaptivepnp_sci_torch import ADMMConfig, DDnet, ffdnet_prior, make_dm_spec
+    from adaptivepnp_sci_torch import two_stage_admm, two_stage_admm_tiled
+    from adaptivepnp_sci_torch.data.synthetic import make_scene
+    from adaptivepnp_sci_torch.solvers.priors import Prior
+
+    mesh = _frame_mesh(meshes)
+    if mesh is None or mesh.axis_size("frame") < 2:
+        return {}
+    sc = make_scene(b=8, h=sz.side, w=sz.side, seed=FRAME_SEED)
+    net = small_ffdnet()
+    cfg = ADMMConfig(sigma=(25 / 255,), iters=(1,))
+    calls = {
+        "tiled": lambda: two_stage_admm_tiled(sc.meas, sc.mask, cfg, tile=sz.side // 2,
+                                              prior=ffdnet_prior(net), params=net.state_dict(),
+                                              device=dev, mesh=mesh),
+        "demosaic_fn": lambda: two_stage_admm(sc.meas, sc.mask, cfg, ffdnet_prior(net),
+                                              net.state_dict(), device=dev, mesh=mesh,
+                                              demosaic_fn=lambda f: f[..., None].expand(
+                                                  *f.shape, 3)),
+        "prior": lambda: two_stage_admm(sc.meas, sc.mask, cfg,
+                                        Prior("ffdnet", net, lambda m, r, s: m(r, s)),
+                                        net.state_dict(), device=dev, mesh=mesh),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = np.array(False)
+        except NotImplementedError as err:
+            out[name] = np.array("'frame'" in str(err))
+    n = mesh.axis_size("frame")
+    try:
+        two_stage_admm(sc.meas, sc.mask[:n], ADMMConfig(sigma=(25 / 255,), iters=(1,),
+                                                        demosaic_method="ddnet"),
+                       ffdnet_prior(net), net.state_dict(), dm_spec=make_dm_spec(DDnet()),
+                       device=dev, mesh=mesh)
+        out["too_many_shards"] = np.array(False)
+    except ValueError as err:
+        out["too_many_shards"] = np.array("too many shards" in str(err))
+    return out
+
+
+def case_batched_adapt(meshes, dev, sz):
+    """The batched driver over ``data``, 4 measurements adapting one after
+    another: FastDVDnet with its input noise (a CPU generator seeded with 0;
+    a rank makes the draws of the measurements before its share), FFDNet
+    (no draws), and FFDNet with DDnet adapted in the loop."""
+    from adaptivepnp_sci_torch import (ADMMConfig, AdaptConfig, DDnet, FastDVDnet, fastdvd_prior,
+                                       ffdnet_prior, make_dm_spec, two_stage_admm_batched)
+    from adaptivepnp_sci_torch.data.synthetic import make_scene
+    from adaptivepnp_sci_torch.models.convert import ddnet_from_flax, load_variables_npz
+
+    sc = make_scene(b=4, h=sz.side, w=sz.side, seed=14, n_meas=4)
+    y = np.moveaxis(sc.meas, -1, 0)
+    orig = sc.orig_bayer  # (T, B, H, W)
+    mesh = meshes["data"] if meshes else None
+    net = small_ffdnet()
+    adapt = AdaptConfig(**FRAME_ADAPT)
+    runs = {
+        "fastdvd": two_stage_admm_batched(
+            y, sc.mask, ADMMConfig(sigma=(12 / 255,), iters=(3,), denoiser="fastdvd",
+                                   adapt=adapt),
+            fastdvd_prior(FastDVDnet()), _fastdvd_params(), orig_batch=orig, device=dev,
+            mesh=mesh),
+        "ffdnet": two_stage_admm_batched(
+            y, sc.mask, ADMMConfig(sigma=(25 / 255,), iters=(3,), adapt=adapt),
+            ffdnet_prior(net), net.state_dict(), orig_batch=orig, device=dev, mesh=mesh),
+        "dm": two_stage_admm_batched(
+            y, sc.mask, ADMMConfig(sigma=(25 / 255,), iters=(2,), demosaic_method="ddnet"),
+            ffdnet_prior(net), net.state_dict(), orig_batch=orig,
+            dm_spec=make_dm_spec(DDnet(), lr=1e-6),
+            dm_variables=ddnet_from_flax(load_variables_npz(str(WEIGHTS / "ddnet.npz"))),
+            device=dev, mesh=mesh),
+    }
+    out = {}
+    for tag, res in runs.items():
+        out[f"{tag}_x_bayer"] = _np(res.x_bayer)
+        out[f"{tag}_psnr"] = _np(res.psnr_per_frame)
+        for field in ("variables", "dm_variables"):
+            if getattr(res, field) is not None:
+                out[f"{tag}_{field}"] = _state_flat(getattr(res, field))
+    return out
+
+
 # ------------------------------------------------- full width (the card only)
 #
 # The bf16 FastDVDnet path of the repository's configurations: the prior on
@@ -467,20 +808,125 @@ def case_train_full(meshes, dev, sz):
             "params": params, **collective_profile(prof, "step_")}
 
 
+#: the FFDNet flagship: FFDNet-color nc 96, nb 12 on the seeded Flax-style
+#: weights, a 40-iteration GAP-TV warm start, sigma (25, 12, 6)/255 x (15, 6,
+#: 4), one trigger at k = 15 (2 Adam steps at lr 2e-6)
+FLAGSHIP_SCHEDULE = dict(sigma=(25 / 255, 12 / 255, 6 / 255), iters=(15, 6, 4))
+FLAGSHIP_ADAPT = dict(lr=2e-6, update_per_iter=2, interval_iter=15, initial_iter=1)
+#: the frame-sharded snapshots' timed runs, after one profiled warm-up (the
+#: float32 FastDVDnet row, 7 s a snapshot in one process: one)
+FRAME_FULL_RUNS = {"frame_flagship_full": 3, "frame_fastdvd_full": 3,
+                   "frame_fastdvd_fixed_full": 1, "frame_fastdvd_fp32_full": 1}
+
+
+def _snapshot_full(meshes, dev, sz, prior, params, cfg, runs):
+    """``reconstruct_single_dispatch`` of the ``side``-sized smooth scene
+    (seed 42) over the frame axis: one warm-up under ``torch.profiler``
+    (host activity: its collectives), then ``runs`` timed runs, the launches
+    counted from the last alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaptivepnp_sci_torch import GapTVConfig, reconstruct_single_dispatch
+    from adaptivepnp_sci_torch.data.synthetic import make_scene
+    from adaptivepnp_sci_torch.ops import cuda_kernels
+
+    sc = make_scene(b=8, h=sz.side, w=sz.side, seed=42)
+
+    def run():
+        return reconstruct_single_dispatch(sc.meas, sc.mask, GapTVConfig(iters=40), cfg, prior,
+                                           params, orig=sc.orig_bayer, device=dev,
+                                           mesh=_frame_mesh(meshes))
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        _sync(meshes, dev)
+    times = []
+    for _ in range(runs):
+        _sync(meshes, dev)
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = run()
+        _sync(meshes, dev)
+        times.append(time.perf_counter() - t0)
+    return {"psnr": _np(res.psnr_per_frame), "x_bayer": _np(res.x_bayer),
+            "finite": np.array(bool(torch.isfinite(res.x_bayer).all()
+                                    & torch.isfinite(res.x_rgb).all())),
+            "variables": _state_flat(res.variables),
+            "seconds_per_snapshot": np.array(float(np.median(times))),
+            "seconds_runs": np.array(times), **collective_profile(prof, "warmup_")}
+
+
+def case_frame_flagship_full(meshes, dev, sz):
+    """The FFDNet flagship through ``reconstruct_single_dispatch(mesh=)``."""
+    from adaptivepnp_sci_torch import ADMMConfig, AdaptConfig, ffdnet_prior
+    from adaptivepnp_sci_torch.models.convert import ffdnet_from_flax
+    from adaptivepnp_sci_torch.models.ffdnet import FFDNet
+
+    cfg = ADMMConfig(**FLAGSHIP_SCHEDULE, adapt=AdaptConfig(**FLAGSHIP_ADAPT))
+    return _snapshot_full(meshes, dev, sz, ffdnet_prior(FFDNet(nc=96, nb=12)),
+                          ffdnet_from_flax(flax_style_ffdnet_params(96, 12, seed=0)), cfg,
+                          FRAME_FULL_RUNS["frame_flagship_full"])
+
+
+def _fastdvd_full(meshes, dev, sz, name, dtype, remat, adapt):
+    """The FastDVDnet Bosphorus row (``weights/``, the adaptation noise from
+    the default CPU generator) through ``reconstruct_single_dispatch(mesh=)``."""
+    from adaptivepnp_sci_torch import ADMMConfig, AdaptConfig, FastDVDnet, fastdvd_prior
+
+    cfg = ADMMConfig(**FULL_SCHEDULE, denoiser="fastdvd",
+                     adapt=AdaptConfig(**FULL_ADAPT) if adapt else None)
+    return _snapshot_full(meshes, dev, sz, fastdvd_prior(FastDVDnet(dtype=dtype, remat=remat)),
+                          _fastdvd_params(), cfg, FRAME_FULL_RUNS[name])
+
+
+def case_frame_fastdvd_full(meshes, dev, sz):
+    """The bf16 row (remat off) as the ``fastdvd`` phase runs it."""
+    return _fastdvd_full(meshes, dev, sz, "frame_fastdvd_full", torch.bfloat16, False, True)
+
+
+def case_frame_fastdvd_fixed_full(meshes, dev, sz):
+    """The bf16 row without its adaptation."""
+    return _fastdvd_full(meshes, dev, sz, "frame_fastdvd_fixed_full", torch.bfloat16, False,
+                         False)
+
+
+def case_frame_fastdvd_fp32_full(meshes, dev, sz):
+    """The float32 row (remat on) as the ``fastdvd`` phase runs it."""
+    return _fastdvd_full(meshes, dev, sz, "frame_fastdvd_fp32_full", None, True, True)
+
+
 CASES: dict[str, Callable] = {
     "halo": case_halo, "too_many_shards": case_too_many_shards, "prior": case_prior,
     "prior_bf16": case_prior_bf16, "prior_grad": case_prior_grad, "dp_step": case_dp_step,
     "trainer": case_trainer, "solver": case_solver, "solver_adapt": case_solver_adapt,
     "tiled": case_tiled, "tiled_guard": case_tiled_guard, "tiled_dm": case_tiled_dm,
     "batched": case_batched,
+    "frame_tv": case_frame_tv, "frame_ffdnet": case_frame_ffdnet,
+    "frame_fastdvd": case_frame_fastdvd, "frame_fastdvd_adapt": case_frame_fastdvd_adapt,
+    "frame_ddnet": case_frame_ddnet, "frame_dispatch": case_frame_dispatch,
+    "frame_gap_deep": case_frame_gap_deep, "frame_gray": case_frame_gray,
+    "frame_loss_grad": case_frame_loss_grad,
+    "frame_loss_grad_all_reduce_sum": case_frame_loss_grad_all_reduce_sum,
+    "frame_refusals": case_frame_refusals, "batched_adapt": case_batched_adapt,
     "prior_full": case_prior_full, "tiled_full": case_tiled_full, "train_full": case_train_full,
+    "frame_flagship_full": case_frame_flagship_full,
+    "frame_fastdvd_full": case_frame_fastdvd_full,
+    "frame_fastdvd_fixed_full": case_frame_fastdvd_fixed_full,
+    "frame_fastdvd_fp32_full": case_frame_fastdvd_fp32_full,
 }
+#: the frame-sharded solve's cases and the adapting batched driver's
+FRAME_CASES = [c for c in CASES if c.startswith("frame_") and not c.endswith("_full")]
+FRAME_CASES.append("batched_adapt")
 #: the cases of a run at each size (the bf16 prior only where it has a kernel)
-DEFAULT_CASES = {"cpu": list(CASES)[:13], "card": list(CASES)[:13],
-                 "full": ["prior_full", "tiled_full", "train_full"]}
+DEFAULT_CASES = {"cpu": list(CASES)[:13] + FRAME_CASES, "card": list(CASES)[:13] + FRAME_CASES,
+                 "full": ["prior_full", "tiled_full", "train_full", *FRAME_FULL_RUNS]}
 DEFAULT_CASES["cpu"].remove("prior_bf16")
+#: cases whose every result is a flag that a refusal was made (none at one rank)
+REFUSALS = {"too_many_shards", "frame_refusals"}
+#: cases that must differ from the one-process run
+MUST_FAIL = {"frame_loss_grad_all_reduce_sum"}
 #: cases that time themselves, and profile only what they do not time
-SELF_TIMED = {"prior_full", "tiled_full", "train_full"}
+SELF_TIMED = {"prior_full", "tiled_full", "train_full", *FRAME_FULL_RUNS}
 
 #: (The adaptation and training cases step at lr 2e-6 or below: Adam moves a
 #: weight by about lr whatever its gradient's size, so where two summation
@@ -668,6 +1114,13 @@ def compare(name: str, got: dict[str, np.ndarray], want: dict[str, np.ndarray],
     return worst
 
 
+def grad_norm_ratios(got: dict[str, np.ndarray], want: dict[str, np.ndarray]
+                     ) -> dict[str, float]:
+    """``||g_rank|| / ||g_one||`` of each ``*_grads`` array of a case."""
+    return {k: float(np.linalg.norm(got[k]) / np.linalg.norm(want[k]))
+            for k in got if k.endswith("_grads")}
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--worker", nargs=3, metavar=("RANK", "NPROC", "INIT"))
@@ -700,9 +1153,17 @@ def main(argv: list[str]) -> int:
         want = run_case(name, None, args.device, SIZES[size])
         for rank, res in enumerate(ranks):
             got = outputs(res[name])
-            if name == "too_many_shards":
-                ok = args.nproc < 2 or bool(got["too_many_shards"])
+            if name in REFUSALS:
+                ok = args.nproc < 2 or all(bool(v) for v in got.values())
                 print(f"rank {rank}: {name}: {'refused' if ok else 'NOT refused'}")
+                if not ok:
+                    return 1
+                continue
+            if name in MUST_FAIL and args.nproc > 1:
+                ratios = grad_norm_ratios(got, want)
+                ok = any(abs(r - 1.0) > 1e-3 for r in ratios.values())
+                print(f"rank {rank}: {name} {'fails as it must' if ok else 'does NOT fail'}: "
+                      f"gradient norm ratios {ratios}", flush=True)
                 if not ok:
                     return 1
                 continue

@@ -4,7 +4,8 @@
 Two kernels carry the flagship path, with the JAX package's wrapper names:
 
 * ``csrc/x_update.cu``: the fused GAP / ADMM x-update
-  (:func:`admm_x_update`, :func:`gap_x_update`);
+  (:func:`admm_x_update`, :func:`gap_x_update`), and its split form of two
+  launches for a solve whose frames are spread over ranks (``frame=``);
 * ``csrc/tv_chambolle.cu``: the channel-wise Chambolle TV prox with the
   per-plane early stop (:func:`tv_chambolle_fused`), in two designs: a
   thread-block cluster per plane with the state in shared memory
@@ -128,7 +129,9 @@ def _signatures() -> dict[str, dict[str, list]]:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     pair = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     return {
-        "x_update": {"apnp_x_update": [p, p, p, p, p, p, i, i, ll, ll, ll, f, f, f, f, i, p]},
+        "x_update": {"apnp_x_update": [p, p, p, p, p, p, i, i, ll, ll, ll, f, f, f, f, i, p],
+                     "apnp_x_update_partial": [p, p, p, p, p, i, i, ll, ll, f, f, i, p],
+                     "apnp_x_update_finish": [p, p, p, p, p, i, i, i, ll, ll, ll, f, f, i, p]},
         "tv_chambolle": {
             "apnp_tv_chambolle": [p, p, p, p, p, i, i, i, f, f, f, i, p],
             "apnp_tv_chambolle_cluster": [p, p, p, i, i, i, i, i, f, f, f, i, p],
@@ -169,7 +172,7 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def _x_update_cuda(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tensor,
-                   sign: float, rho: float, c: float, lam: float) -> Tensor:
+                   sign: float, rho: float, c: float, lam: float, frame=None) -> Tensor:
     if theta.dim() not in (4, 5):
         raise ValueError(f"x_update: expected theta (B, C, H, W) or (N, B, C, H, W), "
                          f"got {tuple(theta.shape)}")
@@ -188,40 +191,81 @@ def _x_update_cuda(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tens
         _check(f"x_update {nm}", t, shp, dev)
     out = torch.empty_like(theta)
     n_plane = theta[(0,) * (len(items) + 1)].numel()
-    vec4 = n_plane % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (theta, b, y, phi, phi_s, out))
+    phi_stride = cube[0] * n_plane if phi_items else 0
+    phis_stride = n_plane if phis_items else 0
+    aligned = (theta, b, y, phi, phi_s, out)
     lib = _lib("x_update")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.apnp_x_update(
-            theta.data_ptr(), b.data_ptr(), y.data_ptr(), phi.data_ptr(),
-            phi_s.data_ptr(), out.data_ptr(), n_items, cube[0], n_plane,
-            cube[0] * n_plane if phi_items else 0, n_plane if phis_items else 0,
-            sign, rho, c, lam, int(vec4), stream)
-    _raise_on(rc, "x_update launch")
+        if frame is None:
+            vec4 = n_plane % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in aligned)
+            rc = lib.apnp_x_update(
+                theta.data_ptr(), b.data_ptr(), y.data_ptr(), phi.data_ptr(),
+                phi_s.data_ptr(), out.data_ptr(), n_items, cube[0], n_plane,
+                phi_stride, phis_stride, sign, rho, c, lam, int(vec4), stream)
+            _raise_on(rc, "x_update launch")
+            launches["x_update"] += 1
+            return out
+        terms = torch.empty_like(theta)
+        vec4 = n_plane % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (*aligned, terms))
+        rc = lib.apnp_x_update_partial(
+            theta.data_ptr(), b.data_ptr(), phi.data_ptr(), out.data_ptr(), terms.data_ptr(),
+            n_items, cube[0], n_plane, phi_stride, sign, rho, int(vec4), stream)
+    _raise_on(rc, "x_update partial launch")
+    launches["x_update"] += 1
+    terms = frame.gather(terms, physics.PACKED_FRAME_AXIS).contiguous()
+    _check("x_update gathered terms", terms, items + (terms.shape[-4],) + plane, dev)
+    vec4 = vec4 and terms.data_ptr() % 16 == 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.apnp_x_update_finish(
+            out.data_ptr(), terms.data_ptr(), y.data_ptr(), phi.data_ptr(), phi_s.data_ptr(),
+            n_items, cube[0], terms.shape[-4], n_plane, phi_stride, phis_stride, c, lam,
+            int(vec4), stream)
+    _raise_on(rc, "x_update finish launch")
     launches["x_update"] += 1
     return out
 
 
+def _x_update_split(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tensor,
+                    sign: float, rho: float, c: float, lam: float, frame) -> Tensor:
+    """The plain split form: the partial pass, the terms gathered over the
+    ranks, the finish."""
+    p, terms = physics.x_update_partial(theta, b, phi, sign, rho)
+    terms = frame.gather(terms, physics.PACKED_FRAME_AXIS)
+    return physics.x_update_finish(p, terms, y, phi, phi_s, c, lam)
+
+
 def admm_x_update(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tensor,
-                  rho: float, alpha: float) -> Tensor:
+                  rho: float, alpha: float, frame=None) -> Tensor:
     """Fused equivalent of :func:`physics.admm_x_update`: ``theta``, ``b``
     ``(B, 4, h, w)`` with ``y``, ``phi_s`` ``(4, h, w)``, or with an item axis
     in one launch: ``theta``, ``b`` ``(N, B, 4, h, w)``, ``y`` ``(N, 4, h, w)``,
     and ``phi``, ``phi_s`` per item or one ``(B, 4, h, w)`` / ``(4, h, w)``
-    shared by all items."""
+    shared by all items.
+
+    ``frame``: ``theta``, ``b`` and ``phi`` hold this rank's frames of a cube
+    whose frames are spread over ranks, and ``frame.gather(t, dim)``
+    concatenates every rank's ``t`` along ``dim`` in frame order (a
+    :class:`~adaptivepnp_sci_torch.adapt.online.FrameShard`); ``phi_s`` is
+    the whole cube's. The update then runs as the split form's two launches,
+    the terms of the frame sum gathered between them."""
     if theta.device.type == "cpu":
+        if frame is not None:
+            return _x_update_split(theta, b, y, phi, phi_s, -1.0, rho, alpha * rho, 1.0, frame)
         return physics.admm_x_update(theta, b, y, phi, phi_s, rho, alpha)
-    return _x_update_cuda(theta, b, y, phi, phi_s, -1.0, rho, alpha * rho, 1.0)
+    return _x_update_cuda(theta, b, y, phi, phi_s, -1.0, rho, alpha * rho, 1.0, frame)
 
 
 def gap_x_update(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tensor,
-                 lam: float = 1.0, gamma: float = 0.01) -> Tensor:
+                 lam: float = 1.0, gamma: float = 0.01, frame=None) -> Tensor:
     """Fused equivalent of :func:`physics.gap_x_update`, for any ``lam``, over
-    the shapes of :func:`admm_x_update`."""
+    the shapes and with the ``frame`` of :func:`admm_x_update`."""
     if theta.device.type == "cpu":
+        if frame is not None:
+            return _x_update_split(theta, b, y, phi, phi_s, 1.0, 1.0, gamma, lam, frame)
         return physics.gap_x_update(theta, b, y, phi, phi_s, lam, gamma)
-    return _x_update_cuda(theta, b, y, phi, phi_s, 1.0, 1.0, gamma, lam)
+    return _x_update_cuda(theta, b, y, phi, phi_s, 1.0, 1.0, gamma, lam, frame)
 
 
 #: shared memory a block of the TV cluster kernel may take for its strip

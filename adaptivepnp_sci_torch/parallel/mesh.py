@@ -21,6 +21,10 @@ them:
   each rank ``world`` times its share);
 * :func:`all_reduce_sum`: a sum over an axis whose backward is the sum of the
   upstream gradients over the same ranks (synchronised BatchNorm statistics);
+* :func:`gathered_sum`: a sum of per-rank terms that every rank takes over
+  all of them in rank order, for a loss that every rank computes alike from
+  it (the frame sum of the adaptation loss): its backward hands each rank the
+  upstream gradient of its own terms as it is;
 * :func:`reduce_gradients`: the in-place sum or mean of ``.grad`` over an
   axis, one flat all-reduce for all of them.
 
@@ -180,6 +184,16 @@ def all_reduce_sum(x: Tensor, mesh: Mesh, axis: str | Sequence[str]) -> Tensor:
     if group is None:
         return x
     return _AllReduceSum.apply(x, group)
+
+
+def gathered_sum(x: Tensor, mesh: Mesh, axis: str | Sequence[str], dim: int = 0) -> Tensor:
+    """The sum over ``dim`` of the slices of ``axis``'s ranks, taken over the
+    gathered tensor (:func:`gather`) in rank order, so every rank gets the one
+    process's sum bit for bit. Every rank then computes the same loss from
+    it, and the backward hands each rank the upstream gradient of its own
+    slice as it is; :func:`all_reduce_sum`'s backward would sum those equal
+    gradients over the ranks, ``axis``'s size times too large."""
+    return torch.sum(gather(x, mesh, axis, dim), dim=dim)
 
 
 def all_reduce_tensors(tensors: Iterable[Tensor], mesh: Mesh,

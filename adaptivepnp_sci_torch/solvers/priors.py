@@ -6,12 +6,18 @@ A prior names a template module and how to apply it over the whole
 never run or adapt the template itself: they load the caller's parameters
 into a private copy (:func:`working_copy`) and return that copy's state dict.
 The DDnet demosaicker (:func:`ddnet_demosaic`) runs on such a copy too.
+
+A solve whose frames are spread over the ranks of a mesh's ``frame`` axis
+takes each prior's and demosaicker's ``frame_sharded`` form: it is given the
+rank's frames and returns the rank's frames, the sliding windows reaching the
+neighbours' frames through the ring halo
+(:func:`~adaptivepnp_sci_torch.parallel.halo.halo_windows`).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Mapping, NamedTuple
+from typing import TYPE_CHECKING, Callable, Mapping, NamedTuple
 
 import torch
 import torch.nn as nn
@@ -19,6 +25,10 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from adaptivepnp_sci_torch.ops.bayer import embed_rgb
+from adaptivepnp_sci_torch.parallel.halo import halo_windows
+
+if TYPE_CHECKING:
+    from adaptivepnp_sci_torch.parallel.mesh import Mesh
 
 
 class Prior(NamedTuple):
@@ -41,6 +51,10 @@ class Prior(NamedTuple):
         ranks, the in-place sum of the parameters' gradients over them, run
         after each adaptation backward (None: one rank holds the whole
         gradient).
+      frame_sharded: ``mesh -> Prior``, this prior's form for a solve whose
+        frames are spread over ``mesh``'s ``frame`` axis: ``apply`` takes and
+        returns the rank's frames, and ``reduce_grads`` sums over the axis
+        (None: no such form; a frame-sharded solve refuses the prior).
     """
 
     name: str
@@ -51,6 +65,7 @@ class Prior(NamedTuple):
     adapt_mask: tuple[str, float] | None = None
     apply_adapt: Callable[[nn.Module, Tensor, Tensor], Tensor] | None = None
     reduce_grads: Callable[[list[Tensor]], None] | None = None
+    frame_sharded: Callable[["Mesh"], "Prior"] | None = None
 
 
 def _apply_module(net: nn.Module, rgb: Tensor, sigma: Tensor) -> Tensor:
@@ -59,7 +74,14 @@ def _apply_module(net: nn.Module, rgb: Tensor, sigma: Tensor) -> Tensor:
 
 def ffdnet_prior(model: nn.Module) -> Prior:
     """FFDNet image prior: the B frames are denoised as one batch."""
-    return Prior("ffdnet", model, _apply_module, loss_mode="packed4", adapt_noise_std=0.0)
+
+    def on_frames(mesh: "Mesh") -> Prior:
+        from adaptivepnp_sci_torch.parallel.sharded import ffdnet_prior_frames
+
+        return ffdnet_prior_frames(model, mesh)
+
+    return Prior("ffdnet", model, _apply_module, loss_mode="packed4", adapt_noise_std=0.0,
+                 frame_sharded=on_frames)
 
 
 def window_indices(n_frames: int, window: int = 5) -> Tensor:
@@ -110,9 +132,17 @@ def fastdvd_prior(model: nn.Module, window: int = 5, window_chunk: int | None = 
 
         return apply
 
+    def on_frames(mesh: "Mesh") -> Prior:
+        from adaptivepnp_sci_torch.parallel.sharded import fastdvd_prior_frames
+
+        return fastdvd_prior_frames(model, mesh, window, window_chunk=window_chunk,
+                                    adapt_window_chunk=adapt_window_chunk,
+                                    adapt_mask=adapt_mask)
+
     return Prior("fastdvd", model, chunked(window_chunk), loss_mode="bayer1",
                  adapt_noise_std=5.0 / 255.0, adapt_mask=adapt_mask,
-                 apply_adapt=chunked(adapt_window_chunk or window_chunk))
+                 apply_adapt=chunked(adapt_window_chunk or window_chunk),
+                 frame_sharded=on_frames)
 
 
 def module_copy(model: nn.Module, params: Mapping[str, Tensor] | None,
@@ -132,7 +162,7 @@ def working_copy(prior: Prior, params: Mapping[str, Tensor] | None,
     return module_copy(prior.model, params, device)
 
 
-def ddnet_demosaic_param(model: nn.Module, window: int = 5
+def ddnet_demosaic_param(model: nn.Module, window: int = 5, mesh: "Mesh | None" = None
                          ) -> Callable[[nn.Module, Tensor], Tensor]:
     """Deep joint demosaicker for the solver: ``(net, (B, H, W)) -> (B, H, W, 3)``
     with ``net`` a DDnet (``model`` or a copy of it; ``model`` is the template
@@ -141,6 +171,11 @@ def ddnet_demosaic_param(model: nn.Module, window: int = 5
     Embeds each Bayer frame as sparse RGB, reflect-pads H and W up to
     multiples of 4 (the U-Nets downsample twice), gathers circular 5-frame
     windows and runs DDnet on all B windows as one batch, then crops.
+
+    ``mesh``: the frames are this rank's of a cube spread over ``mesh``'s
+    ``frame`` axis; the windows reach the neighbours' frames through the ring
+    halo, which needs ``(window - 1) // 2`` frames a rank (otherwise the halo's
+    "too many shards" ``ValueError``).
     """
     del model  # the architecture travels with ``net``
 
@@ -151,8 +186,11 @@ def ddnet_demosaic_param(model: nn.Module, window: int = 5
         if hp or wp:
             rgb = F.pad(rgb.permute(0, 3, 1, 2), (0, wp, 0, hp), mode="reflect")
             rgb = rgb.permute(0, 2, 3, 1)
-        out = net(rgb[window_indices(b, window).to(rgb.device)])
-        return out[:, :h, :w]
+        if mesh is None:
+            windows = rgb[window_indices(b, window).to(rgb.device)]
+        else:
+            windows = halo_windows(rgb, mesh, "frame", window)
+        return net(windows)[:, :h, :w]
 
     return apply
 
@@ -163,14 +201,21 @@ def ddnet_demosaic(model: nn.Module, params: Mapping[str, Tensor] | None = None,
     (B, H, W, 3)``, run without gradient on a private float32 copy of
     ``model`` holding ``params`` (the template's own weights when None). The
     copy follows its input's device; ``model`` and ``params`` are never
-    changed."""
-    apply_p = ddnet_demosaic_param(model, window)
+    changed. The function's ``frame_sharded(mesh)`` is its form on a rank's
+    frames, on the same copy."""
     net = module_copy(model, params, "cpu")
 
-    @torch.no_grad()
-    def apply(mosaic_frames: Tensor) -> Tensor:
-        if net.weight_tensor_in.device != mosaic_frames.device:
-            net.to(mosaic_frames.device)
-        return apply_p(net, mosaic_frames)
+    def bound(mesh: "Mesh | None") -> Callable[[Tensor], Tensor]:
+        apply_p = ddnet_demosaic_param(model, window, mesh)
 
+        @torch.no_grad()
+        def apply(mosaic_frames: Tensor) -> Tensor:
+            if net.weight_tensor_in.device != mosaic_frames.device:
+                net.to(mosaic_frames.device)
+            return apply_p(net, mosaic_frames)
+
+        return apply
+
+    apply = bound(None)
+    apply.frame_sharded = bound
     return apply

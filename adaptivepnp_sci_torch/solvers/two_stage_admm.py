@@ -22,7 +22,12 @@ into tiles that share one adaptation). Options of the JAX solver outside that
 subset raise ``NotImplementedError`` (:func:`check_supported`); none is
 silently ignored. The tiled and batched drivers take a ``mesh``
 (:mod:`adaptivepnp_sci_torch.parallel`): their tiles or measurements spread
-over the ranks of its ``data`` axis.
+over the ranks of its ``data`` axis. :func:`two_stage_admm` takes one too: the
+measurement's frames spread over the ranks of its ``frame`` axis
+(:class:`~adaptivepnp_sci_torch.adapt.online.FrameShard`), each rank holding
+its frames of the packed state, the frame sums of the x-update, the
+guard's residuals and the adaptation loss taken over every rank's frames,
+and the result gathered back on every rank.
 
 Several measurements run in lockstep along a leading item axis
 (:func:`run_admm`): the x-update kernel takes all items in one launch, the
@@ -49,15 +54,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch import Tensor
 
-from adaptivepnp_sci_torch.adapt.ddnet_online import dm_adam_steps
+from adaptivepnp_sci_torch.adapt.ddnet_online import dm_adam_steps, frames_mse
 from adaptivepnp_sci_torch.adapt.online import (
     AdaptConfig,
+    FrameShard,
     ItemShard,
     carried_adam,
     check_adapt_supported,
     draws_randoms,
     make_adapt_fn,
     make_schedule,
+    trigger_draws,
 )
 from adaptivepnp_sci_torch.ops import bayer, cuda_kernels, demosaic, metrics, physics
 from adaptivepnp_sci_torch.ops.menon2007 import menon2007
@@ -141,27 +148,34 @@ class DmSpec(NamedTuple):
     self-consistency loss ``MSE(mosaic(demosaic(x)), x) / 3`` of a private
     float32 copy of ``model``, then demosaics with the refined weights.
     ``fresh_opt`` builds a new Adam before every step (the reference's
-    semantics); otherwise one Adam state carries through the solve."""
+    semantics); otherwise one Adam state carries through the solve.
+    ``frame_sharded(mesh)``: ``apply``'s form on a rank's frames of a cube
+    spread over ``mesh``'s ``frame`` axis (None: a frame-sharded solve
+    refuses the spec)."""
 
     model: nn.Module
     apply: Callable[[nn.Module, Tensor], Tensor]  # (net, (B,H,W)) -> (B,H,W,3)
     lr: float = 1e-6
     update_per_iter: int = 1
     fresh_opt: bool = False
+    frame_sharded: Callable[[Mesh], Callable[[nn.Module, Tensor], Tensor]] | None = None
 
 
 def make_dm_spec(model: nn.Module, lr: float = 1e-6, update_per_iter: int = 1,
                  window: int = 5, fresh_opt: bool = False) -> DmSpec:
     """The :class:`DmSpec` of a DDnet-style demosaicker ``model``."""
-    return DmSpec(model, ddnet_demosaic_param(model, window), lr, update_per_iter, fresh_opt)
+    return DmSpec(model, ddnet_demosaic_param(model, window), lr, update_per_iter, fresh_opt,
+                  lambda mesh: ddnet_demosaic_param(model, window, mesh))
 
 
 class DmState:
     """The solve's private copy of the in-scan demosaicker and its Adam."""
 
     def __init__(self, spec: DmSpec, params: Mapping[str, Tensor] | None,
-                 opt_state: Mapping | None, device: torch.device | str):
+                 opt_state: Mapping | None, device: torch.device | str,
+                 frames: FrameShard | None = None):
         self.spec = spec
+        self.frames = frames
         self.net = module_copy(spec.model, params, device)
         self.opt = torch.optim.Adam(self.net.parameters(), lr=spec.lr)
         if opt_state is not None:
@@ -173,16 +187,17 @@ class DmState:
     def update(self, mosaic_frames: Tensor, shard: ItemShard | None = None) -> None:
         """``update_per_iter`` self-consistency Adam steps on ``mosaic_frames``
         ``(N, B, H, W)``: one update shared by the ``N`` measurements, on the
-        mean of their losses (over the whole group of a ``shard``)."""
+        mean of their losses (over the whole group of a ``shard``, and over
+        every rank's frames with the state's ``frames``)."""
         def loss(frames: Tensor) -> Callable[[], Tensor]:
             def fn() -> Tensor:
                 out = self.demosaic(frames)
-                return torch.mean((bayer.mosaic(out) - frames) ** 2) / 3.0
+                return frames_mse(bayer.mosaic(out) - frames, self.frames) / 3.0
             return fn
 
         self.opt, _ = dm_adam_steps(self.net, self.opt, [loss(f) for f in mosaic_frames],
                                     self.spec.lr, self.spec.update_per_iter,
-                                    self.spec.fresh_opt, shard)
+                                    self.spec.fresh_opt, shard, self.frames)
 
 
 def check_supported(config: ADMMConfig, prior: Prior | None = None,
@@ -250,6 +265,33 @@ def full_f32():
         torch.backends.cuda.matmul.allow_tf32 = mm
 
 
+def on_frames(frames: FrameShard | None, prior: Prior | None, demosaic_fn: Callable | None,
+              dm_spec: DmSpec | None) -> tuple[Prior | None, Callable | None, DmSpec | None]:
+    """The prior, fixed demosaicker and in-scan demosaicker spec in their
+    forms for this rank's ``frames`` (their ``frame_sharded``); as they are
+    without ``frames``. ``NotImplementedError`` for one that has no such
+    form: given the rank's frames, a model whose windows span frames would
+    be wrong without a word."""
+    if frames is None:
+        return prior, demosaic_fn, dm_spec
+
+    def form(obj: Any, what: str) -> Any:
+        make = getattr(obj, "frame_sharded", None)
+        if make is None:
+            raise NotImplementedError(
+                f"{what} has no form for a solve whose frames are spread over the mesh's "
+                f"'frame' axis ({frames.mesh.axis_size('frame')} ranks)")
+        return make(frames.mesh)
+
+    if prior is not None:
+        prior = form(prior, f"the {prior.name!r} prior")
+    if demosaic_fn is not None:
+        demosaic_fn = form(demosaic_fn, "demosaic_fn")
+    if dm_spec is not None:
+        dm_spec = dm_spec._replace(apply=form(dm_spec, "dm_spec"), frame_sharded=None)
+    return prior, demosaic_fn, dm_spec
+
+
 def _per_item(fn: Callable[[Tensor], Tensor], x: Tensor) -> Tensor:
     """``fn`` on each item of ``x``'s leading axis, stacked: priors and
     demosaickers see one measurement's frames at a time, so no window of
@@ -261,15 +303,17 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
              y_full: Tensor, phi_full: Tensor, x0: Tensor, orig: Tensor | None,
              generator: torch.Generator | None = None, demosaic_fn: Callable | None = None,
              dm: DmState | None = None, opt: torch.optim.Adam | None = None,
-             pooled: bool = True, shard: ItemShard | None = None
+             pooled: bool = True, shard: ItemShard | None = None,
+             frames: FrameShard | None = None
              ) -> tuple[Tensor, Tensor, Tensor, Tensor | None]:
     """The whole sigma schedule for ``N`` measurements in lockstep, from the
     packed warm starts ``x0 (N, B, 4, h, w)``, with ``y_full (N, H, W)``,
     ``phi_full`` one ``(B, H, W)`` shared by all items or ``(N, B, H, W)``,
     and ``orig (N, B, H, W)`` or None. Adapts ``net`` in place when the
-    schedule fires, drawing the adaptation noise from ``generator`` (None: one
-    seeded with 0 on the run's device) and stepping ``opt`` when the schedule
-    carries one Adam (:func:`~adaptivepnp_sci_torch.adapt.online.carried_adam`).
+    schedule fires, drawing the adaptation noise from ``generator`` (None: a
+    CPU generator seeded with 0, the same draws on any device) and stepping
+    ``opt`` when the schedule carries one Adam
+    (:func:`~adaptivepnp_sci_torch.adapt.online.carried_adam`).
     ``demosaic_fn`` (e.g. :func:`~adaptivepnp_sci_torch.solvers.priors.ddnet_demosaic`)
     replaces ``config.demosaic_method``'s demosaicker; ``dm`` adapts and runs
     the demosaicker in the loop.
@@ -280,7 +324,12 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
     adaptation is refused for more than one item. ``shard``: the pooled
     items are this rank's share of a group spread over ranks; the
     adaptations' draws and gradients and the pick's mean residual then span
-    the whole group, so every rank takes the same iterate.
+    the whole group, so every rank takes the same iterate. ``frames``:
+    ``phi_full``, ``x0`` and ``orig`` hold this rank's frames (``prior``,
+    ``demosaic_fn`` and ``dm`` their :func:`on_frames` forms); every frame
+    sum (the x-update's, the residuals', the adaptation loss's, the PSNR's)
+    runs over all ranks' frames, so every rank takes the same iterate, and
+    theta and its RGB cube come back as the rank's frames.
 
     Returns ``(theta, xhat, trace, resid_trace)``: the packed final (or, with
     ``select_best``, chosen) theta ``(N, B, 4, h, w)``, its RGB cube (zeros
@@ -313,7 +362,9 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         phi_full = phi_full * (1.0 - hold)[None]
     y_p = bayer.pack(y_full)      # (N, 4, h, w)
     phi_p = bayer.pack(phi_full)  # (B, 4, h, w) or (N, B, 4, h, w)
-    phi_s = physics.phi_sum(phi_p, fa)
+    phi_s = physics.phi_sum(phi_p, fa, None if frames is None else frames.gather)
+    fwd = physics.forward if frames is None else frames.forward
+    psnr = metrics.psnr if frames is None else frames.psnr
     per_phi = phi_full.dim() == 4
     n_frames, h, w = phi_full.shape[-3:]
     trace: list[Tensor] = []
@@ -325,15 +376,15 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
 
     def trace_psnr(theta: Tensor) -> None:
         if orig is not None:
-            trace.append(torch.stack([metrics.psnr(orig[i], bayer.unpack(theta[i]))
+            trace.append(torch.stack([psnr(orig[i], bayer.unpack(theta[i]))
                                       for i in range(n_items)]))
 
     def resid(theta: Tensor) -> Tensor:
         if hold_p is None:
-            rs = [torch.mean((physics.forward(theta[i], item_phi(phi_p, i)) - y_p[i]) ** 2)
+            rs = [torch.mean((fwd(theta[i], item_phi(phi_p, i)) - y_p[i]) ** 2)
                   for i in range(n_items)]
         else:
-            rs = [torch.sum((physics.forward(theta[i], item_phi(phi_true_p, i))
+            rs = [torch.sum((fwd(theta[i], item_phi(phi_true_p, i))
                              - y_true_p[i]) ** 2 * hold_p) / hold_n for i in range(n_items)]
         if not pooled:
             return torch.stack(rs)
@@ -350,7 +401,7 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         if hold_p is None:
             return resid(x0)
         x_ref, _ = _gap_tv_packed(y_p, phi_p, physics.adjoint(y_p, phi_p, fa), None,
-                                  GapTVConfig(iters=config.select_best_warm_iters))
+                                  GapTVConfig(iters=config.select_best_warm_iters), frames)
         return resid(x_ref)
 
     def consider(r: Tensor, theta: Tensor, xhat: Tensor | None = None) -> None:
@@ -384,7 +435,7 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         if config.select_best:
             consider(cand0_resid(x0), x0)
         for _ in range(total):
-            x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha)
+            x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha, frames)
             xb = x + b / rho
             theta = cuda_kernels.tv_chambolle_fused(xb, weight=config.tv_weight,
                                                     max_iter=config.tv_iters)
@@ -411,7 +462,7 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
     cfa = bayer.mask_like(x0, (h, w))
     adapt = make_adapt_fn(prior, config.adapt) if config.adapt is not None else None
     if adapt is not None and draws_randoms(prior, config.adapt) and generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+        generator = torch.Generator().manual_seed(0)
     sigmas = torch.as_tensor(sigmas_np, device=dev)  # one copy; sigmas[k] is a view
     relax = torch.as_tensor(relax_np, device=dev) if relax_np is not None else None
     w_dual = torch.zeros((n_items, n_frames, h, w, 3), dtype=torch.float32, device=dev)
@@ -422,7 +473,7 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         consider(cand0_resid(x0), x0, _per_item(dm_fn, bayer.unpack(x0)))
     for k in range(total):
         sigma = sigmas[k]
-        x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha)
+        x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha, frames)
         xb_full = bayer.unpack(x + b / rho)  # (N, B, H, W)
         if dm is not None:
             dm.update(xb_full, shard)
@@ -437,7 +488,8 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
             x_rgb = _per_item(dm_fn, xb_full)
         x_rgb_w = x_rgb - w_dual / tau
         if adapt is not None and mask[k]:
-            adapt(net, x_rgb_w, sigma, y_p, phi_p, y_full, phi_full, generator, opt, shard)
+            adapt(net, x_rgb_w, sigma, y_p, phi_p, y_full, phi_full, generator, opt, shard,
+                  frames)
         xhat = _per_item(lambda rgb: prior.apply(net, rgb, sigma), x_rgb_w)
         if relax is not None:
             xhat = x_rgb_w + relax[k] * (xhat - x_rgb_w)
@@ -475,21 +527,23 @@ def check_inputs(y: Tensor, phi: Tensor) -> None:
 class SolveState:
     """The private state of one solve, or of a sequence of solves that carry
     it: the denoiser's working copy and its carried Adam, the in-scan
-    demosaicker, and the adaptation noise generator."""
+    demosaicker, and the adaptation noise generator (None: a CPU generator
+    seeded with 0, so a solve draws the same on any device)."""
 
     def __init__(self, config: ADMMConfig, prior: Prior | None,
                  params: Mapping[str, Tensor] | None, device: torch.device | str,
                  opt_state: Mapping | None = None, dm_spec: DmSpec | None = None,
                  dm_variables: Mapping[str, Tensor] | None = None,
                  dm_opt_state: Mapping | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, frames: FrameShard | None = None):
         self.params = params
         self.net = working_copy(prior, params, device) if config.denoiser != "tv" else None
         adapting = config.adapt is not None and self.net is not None
         self.opt = carried_adam(self.net, config.adapt, opt_state) if adapting else None
-        self.dm = DmState(dm_spec, dm_variables, dm_opt_state, device) if dm_spec else None
+        self.dm = (DmState(dm_spec, dm_variables, dm_opt_state, device, frames) if dm_spec
+                   else None)
         if generator is None and adapting and draws_randoms(prior, config.adapt):
-            generator = torch.Generator(device=device).manual_seed(0)
+            generator = torch.Generator().manual_seed(0)
         self.generator = generator
 
     def states(self) -> tuple[Any, Any, Any, Any]:
@@ -516,6 +570,7 @@ def two_stage_admm(
     dm_variables: Mapping[str, Tensor] | None = None,
     dm_opt_state: Mapping | None = None,
     opt_state: Mapping | None = None,
+    mesh: Mesh | None = None,
 ) -> ADMMResult:
     """Reconstruct one measurement.
 
@@ -530,7 +585,7 @@ def two_stage_admm(
       orig_bayer: optional ground truth for metrics.
       device:     where to run; the kernels run on CUDA.
       generator:  source of the adaptation input noise (FastDVDnet); None
-        seeds one with 0.
+        seeds a CPU generator with 0 (the same draws on any device).
       demosaic_fn: fixed-weight deep demosaicker ``(B,H,W) -> (B,H,W,3)``
         (:func:`~adaptivepnp_sci_torch.solvers.priors.ddnet_demosaic`).
       dm_spec/dm_variables/dm_opt_state: in-scan demosaicker adaptation
@@ -541,28 +596,73 @@ def two_stage_admm(
       opt_state:  the denoiser Adam's state dict to continue from, with
         ``AdaptConfig.fresh_opt_per_trigger=False`` (None: a new Adam); the
         state after this solve comes back in ``ADMMResult.opt_state``.
+      mesh:       a ``(data, frame)`` mesh of ranks
+        (:mod:`adaptivepnp_sci_torch.parallel`), each given the whole
+        inputs: each rank of the ``frame`` axis solves its ``B / frame``
+        consecutive frames (:class:`FrameShard`), the prior, demosaicker and
+        ``dm_spec`` in their :func:`on_frames` forms, and every rank returns
+        the whole result, the same on all of them; the ``data`` axis
+        replicates. A mesh with one ``frame`` rank takes the one-process path.
     """
     check_supported(config, prior, demosaic_fn, dm_spec)
     y = as_f32(y_bayer, device)
     phi = as_f32(phi_bayer, device)
     check_inputs(y, phi)
+    frames = FrameShard.of(mesh, phi.shape[0])
+    prior, demosaic_fn, dm_spec = on_frames(frames, prior, demosaic_fn, dm_spec)
+
+    def mine(t: Tensor) -> Tensor:
+        return t if frames is None else frames.local(t)
+
     if x0_bayer is None:
-        x0 = physics.adjoint(bayer.pack(y), bayer.pack(phi))
+        x0 = physics.adjoint(bayer.pack(y), bayer.pack(mine(phi)))
     else:
-        x0 = bayer.pack(as_f32(x0_bayer, device))
+        x0 = bayer.pack(mine(as_f32(x0_bayer, device)))
     orig = as_f32(orig_bayer, device) if orig_bayer is not None else None
 
     with full_f32(), torch.no_grad():
         st = SolveState(config, prior, params, device, opt_state, dm_spec, dm_variables,
-                    dm_opt_state, generator)
+                        dm_opt_state, generator, frames)
         theta, xhat, trace, resids = run_admm(
-            config, prior, st.net, y[None], phi, x0[None],
-            None if orig is None else orig[None], st.generator, demosaic_fn, st.dm, st.opt)
+            config, prior, st.net, y[None], mine(phi), x0[None],
+            None if orig is None else mine(orig)[None], st.generator, demosaic_fn, st.dm,
+            st.opt, frames=frames)
+        if frames is not None:
+            theta, xhat = frames.gather(theta, 1), frames.gather(xhat, 1)
         x_bayer = bayer.unpack(theta[0])
         p, s = frame_metrics(orig, x_bayer)
     variables, opt_out, dm_vars, dm_opt = st.states()
     return ADMMResult(xhat[0], x_bayer, p, s, trace[0], variables, opt_out, dm_vars, dm_opt,
                       resids)
+
+
+def skip_draws(config: ADMMConfig, prior: Prior | None, generator: torch.Generator | None,
+               shape: tuple[int, ...]) -> None:
+    """Make the adaptation draws of one solve of ``config`` without solving:
+    :func:`~adaptivepnp_sci_torch.adapt.online.trigger_draws` once per
+    trigger of its schedule, for inputs of ``shape`` (``(1, B, H, W, 3)`` for
+    one measurement). The draws depend on the configuration and the shapes
+    alone, so a rank that skips the measurements of other ranks leaves
+    ``generator`` where one process solving them would."""
+    if config.adapt is None or prior is None or config.denoiser == "tv":
+        return
+    _, mask = make_schedule(config.sigma, config.iters, config.adapt)
+    for _ in range(int(mask.sum())):
+        trigger_draws(prior, config.adapt, generator, shape)
+
+
+def gather_states(state: Any, mesh: Mesh, axis: str, device: torch.device | str) -> Any:
+    """Every tensor of a state stacked over its leading axis (:func:`stack_states`)
+    gathered over ``axis``'s ranks along that axis, through ``device`` (Adam's
+    step counts live on the CPU, which NCCL does not take); other leaves as
+    they are."""
+    if isinstance(state, Tensor):
+        return gather(state.to(device), mesh, axis).to(state.device)
+    if isinstance(state, Mapping):
+        return {k: gather_states(v, mesh, axis, device) for k, v in state.items()}
+    if isinstance(state, list):
+        return [gather_states(v, mesh, axis, device) for v in state]
+    return state
 
 
 def stack_states(states: list[Any]) -> Any:
@@ -661,15 +761,18 @@ def two_stage_admm_batched(
     Without adaptation and without ``dm_spec`` the ``T`` measurements run in
     lockstep, one kernel launch per step for all of them, each taking its own
     ``select_best`` pick; with either, one :func:`two_stage_admm` after
-    another, the adaptation noise drawn from one ``generator`` in turn (the
-    JAX package splits one PRNG key per measurement instead).
+    another, the adaptation noise drawn from one ``generator`` in turn (None:
+    a CPU generator seeded with 0; the JAX package splits one PRNG key per
+    measurement instead).
 
     ``mesh``: the ``T`` measurements split evenly over the ranks of its
-    ``data`` axis, each rank solving its consecutive share in lockstep, and
-    every field gathered back on every rank (the JAX package places the
-    batch with ``P('data')``). Without adaptation and ``dm_spec`` only: the
-    measurements of an adapting batch draw from one generator in turn, so a
-    rank could not start its share without the draws of the ones before."""
+    ``data`` axis, each rank solving its consecutive share (in lockstep, or
+    one after another with adaptation or ``dm_spec``, each solve over the
+    mesh's ``frame`` axis), and every field and state gathered back on every
+    rank (the JAX package places the batch with ``P('data')``). An adapting
+    rank makes the draws of the measurements before its share without
+    solving them (:func:`skip_draws`), so each measurement draws what it
+    draws in one process."""
     check_supported(config, prior, demosaic_fn, dm_spec)
     y = as_f32(y_batch, device)
     phi = as_f32(phi_bayer, device)
@@ -679,10 +782,28 @@ def two_stage_admm_batched(
     for t in range(n):
         check_inputs(y[t], phi)
     adapting = config.adapt is not None and prior is not None
+    if adapting or dm_spec is not None:
+        if adapting and generator is None and draws_randoms(prior, config.adapt):
+            generator = torch.Generator().manual_seed(0)
+        mine = range(n) if mesh is None else range(n)[shard_slice(n, mesh, "data")]
+        runs = []
+        for t in range(n):
+            if t not in mine:
+                skip_draws(config, prior, generator, (1, *phi.shape, 3))
+                continue
+            runs.append(two_stage_admm(y[t], phi, config, prior, params,
+                                       None if x0 is None else x0[t],
+                                       None if orig is None else orig[t], device, generator,
+                                       demosaic_fn, dm_spec, dm_variables, dm_opt_state,
+                                       opt_state, mesh))
+        states = [stack_states([getattr(r, f) for r in runs]) if getattr(runs[0], f) is not None
+                  else None for f in ("variables", "opt_state", "dm_variables", "dm_opt_state")]
+        out = _stack_results(runs)
+        if mesh is not None:
+            out = [None if t is None else gather(t, mesh, "data") for t in out]
+            states = [gather_states(st, mesh, "data", device) for st in states]
+        return ADMMResult(*out[:5], *states, out[5])
     if mesh is not None:
-        if adapting or dm_spec is not None:
-            raise NotImplementedError("two_stage_admm_batched(mesh=) splits the lockstep solve: "
-                                      "an adapting batch runs on one rank")
         mine = shard_slice(n, mesh, "data")
         res = two_stage_admm_batched(y[mine], phi, config, prior, params,
                                      None if x0 is None else x0[mine],
@@ -692,18 +813,6 @@ def two_stage_admm_batched(
         resid = None if res.resid_trace is None else gather(res.resid_trace, mesh, "data")
         variables = None if params is None else stack_states([dict(params)] * n)
         return ADMMResult(*fields, variables, resid_trace=resid)
-    if adapting or dm_spec is not None:
-        if adapting and generator is None and draws_randoms(prior, config.adapt):
-            generator = torch.Generator(device=device).manual_seed(0)
-        runs = [two_stage_admm(y[t], phi, config, prior, params,
-                               None if x0 is None else x0[t],
-                               None if orig is None else orig[t], device, generator,
-                               demosaic_fn, dm_spec, dm_variables, dm_opt_state, opt_state)
-                for t in range(n)]
-        states = [stack_states([getattr(r, f) for r in runs]) if getattr(runs[0], f) is not None
-                  else None for f in ("variables", "opt_state", "dm_variables", "dm_opt_state")]
-        out = _stack_results(runs)
-        return ADMMResult(*out[:5], *states, out[5])
     with full_f32(), torch.no_grad():
         st = SolveState(config, prior, params, device)
         x0_p = (physics.adjoint(bayer.pack(y), bayer.pack(phi), physics.PACKED_FRAME_AXIS)
@@ -798,8 +907,14 @@ def two_stage_admm_tiled(
     the group's tiles; every rank draws the whole group's adaptation draws in
     tile order and keeps its own. So each tile sees what it sees in one
     process, and the stitched result, the weights and the Adam states come
-    back the same on every rank."""
+    back the same on every rank. A mesh with more than one rank on its
+    ``frame`` axis is refused (``NotImplementedError``): the JAX package
+    places the tiles over ``data`` only."""
     check_supported(config, prior, demosaic_fn, dm_spec)
+    if mesh is not None and mesh.axis_size("frame") > 1:
+        raise NotImplementedError("two_stage_admm_tiled(mesh=) splits its tiles over the 'data' "
+                                  "axis only; a mesh with a 'frame' axis of "
+                                  f"{mesh.axis_size('frame')} ranks is not supported")
     y = as_f32(y_bayer, device)
     phi = as_f32(phi_bayer, device)
     check_inputs(y, phi)

@@ -269,7 +269,13 @@ MODELS_PARITY_REL = 1e-5
 #: ``TRAIN_PARITY``'s: a weight whose gradient is near zero can step +-lr on
 #: one side and -+lr on the other, so all but a thousandth within a tenth of
 #: lr and every one within 2 lr.
-PARALLEL_PARITY_BAR = {"world1": 1e-5, "cpu": 1e-4, "bf16": 2e-2, "dp_lr": 1e-3}
+#: The adaptation loss's gradients (``frame_loss_grad``: FastDVDnet's 2.5M
+#: weights through 8 frames of 64^2) on the card against the CPU's: the norm
+#: of the difference over the CPU gradient's (elementwise they part by
+#: 1.8e-4 of the largest on an H100); against world size 1, on the
+#: same card, elementwise like every other array.
+PARALLEL_PARITY_BAR = {"world1": 1e-5, "cpu": 1e-4, "bf16": 2e-2, "dp_lr": 1e-3,
+                       "cpu_grad_rel_norm": 1e-3}
 _K = ("x_update", "tv_chambolle", "convpair")
 
 
@@ -293,6 +299,27 @@ PARALLEL_PARITY_LAUNCHES = {
     "tiled": (_launches(5), _launches(5)),
     "tiled_guard": (_launches(40 + 2 * 50, 40 + 2 * 40), _launches(40 + 2 * 50, 40 + 2 * 40)),
     "tiled_dm": (_launches(2), _launches(2)), "batched": (_launches(2), _launches(2)),
+    # the frame-sharded solve: each rank's x-update in its split form, two
+    # launches where one process makes one (ADMM-TV 3 iterations and a
+    # 5-iteration GAP-TV; FFDNet 5; FastDVDnet 3; FastDVDnet adapting: a
+    # 10-iteration warm start, the guard's 10-iteration masked one and 6; DDnet
+    # 2; the dispatch's 10-iteration warm start and 5; gap_deep 3); the TV
+    # prox on the rank's planes, the gray solver's on its frames (5 plain, 5
+    # accelerated); the refusals' DDnet solve raises after its first
+    # x-update; the batched driver's 4 measurements over data = 2 run 3 + 3 +
+    # 2 iterations each, the fused form
+    "frame_tv": (_launches(16, 8), _launches(8, 8)),
+    "frame_ffdnet": (_launches(10), _launches(5)),
+    "frame_fastdvd": (_launches(6), _launches(3)),
+    "frame_fastdvd_adapt": (_launches(52, 20), _launches(26, 20)),
+    "frame_ddnet": (_launches(4), _launches(2)),
+    "frame_dispatch": (_launches(30, 10), _launches(15, 10)),
+    "frame_gap_deep": (_launches(6), _launches(3)),
+    "frame_gray": (_launches(0, 10), _launches(0, 10)),
+    "frame_loss_grad": (_launches(), _launches()),
+    "frame_loss_grad_all_reduce_sum": (_launches(), _launches()),
+    "frame_refusals": (_launches(2), _launches()),
+    "batched_adapt": (_launches(16), _launches(32)),
 }
 #: full width on 2 ranks (gloo, one card): the bf16 prior on 8 frames of 512^2
 #: split over a frame axis of 2 (a warm-up, 5 timed calls and a profiled one:
@@ -307,7 +334,15 @@ PARALLEL_PARITY_LAUNCHES = {
 #: profiled
 PARALLEL_LAUNCHES = {"prior_full": _launches(convpair=7 * 8),
                      "tiled_full": _launches(40 + 4 * 36, 40, 8 * 36 * 8),
-                     "train_full": _launches()}
+                     "train_full": _launches(),
+                     # a snapshot over frame = 2, each rank: the split x-update's
+                     # 2 launches for each of the 40 warm-start and the ADMM
+                     # iterations, the TV prox on its 16 planes, 8 conv pairs
+                     # per bf16 denoiser call on its 4 frames
+                     "frame_flagship_full": _launches(2 * (40 + 25), 40),
+                     "frame_fastdvd_full": _launches(2 * (40 + 36), 40, 36 * 8),
+                     "frame_fastdvd_fixed_full": _launches(2 * (40 + 36), 40, 36 * 8),
+                     "frame_fastdvd_fp32_full": _launches(2 * (40 + 36), 40)}
 #: the 2-rank snapshot against the one-process ``tiled`` run (tile_chunk 4):
 #: per-frame PSNR (dB), and the adaptation's weight change as a fraction of
 #: the one-process change (``||w_rank - w_one|| / ||w_one - w_start||``). A
@@ -320,6 +355,24 @@ PARALLEL_LAUNCHES = {"prior_full": _launches(convpair=7 * 8),
 #: direction and leaves room for such weights
 PARALLEL_TILED_DB = 1e-3
 PARALLEL_TILED_DW_FRACTION = 1e-3
+#: the frame-sharded 512^2 snapshots against the one-process runs of the
+#: ``flagship`` and ``fastdvd`` phases (which ``parallel`` needs), at the tiled
+#: snapshot's bars: the FFDNet flagship, the float32 FastDVDnet row, and the
+#: bf16 row without adaptation (against a one-process run made here). The
+#: bf16 row with adaptation cannot hold them: each rank's adaptation gradient
+#: is its frames' share, rounded to bf16 by the convolutions' backward
+#: before the ranks sum it, where one process rounds the whole sum once; the
+#: weights part, and the bf16 loop amplifies any difference
+#: (``FASTDVD_PARITY``). It is held to the bf16 routes' bar of
+#: ``FASTDVD_PARITY`` (1.0 dB per frame, rms |dx| 3e-2), its distances printed
+PARALLEL_FRAME_DB = 1e-3
+PARALLEL_FRAME_DW_FRACTION = 1e-3
+#: The float32 FastDVDnet row's weights are held weight by weight to Adam's
+#: opposite-sign bound, 2 lr a step (lr 2e-7, 4 steps): its 2.5M weights hold
+#: more near-zero gradients whose sign a summation order flips than the
+#: flagship's 0.85M, and their distance read 1.09e-3 of the adaptation's
+#: change on an H100, above PARALLEL_FRAME_DW_FRACTION; it is printed
+PARALLEL_FRAME_FP32_DW = 2 * 2e-7 * 4
 #: host plumbing: ~1 GiB of .npy clips streamed through the native ring
 HOST_NPY = dict(files=64, shape=(4, 1024, 1024))
 
@@ -367,24 +420,6 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def flax_style_ffdnet_params(nc: int, nb: int, seed: int) -> dict:
-    """FFDNet-color weights in Flax's default scheme, as numpy: LeCun fan-in
-    truncated-normal kernels (kh, kw, I, O) and zero biases, in Flax's
-    ``params/conv_{i}/{kernel,bias}`` layout."""
-    rng = np.random.default_rng(seed)
-    chans = [13] + [nc] * (nb - 1) + [12]
-    params = {}
-    for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
-        shape = (3, 3, cin, cout)
-        z = rng.standard_normal(shape)
-        while np.any(bad := np.abs(z) > 2.0):
-            z[bad] = rng.standard_normal(int(bad.sum()))
-        std = np.sqrt(1.0 / (9 * cin)) / 0.87962566103423978  # truncation correction
-        params[f"conv_{i}"] = {"kernel": (z * std).astype(np.float32),
-                               "bias": np.zeros(cout, np.float32)}
-    return {"params": params}
 
 
 def flagship_breakdown(torch, sc, prior, params) -> dict:
@@ -555,8 +590,9 @@ def main(argv: list[str]) -> int:
               "train", "scenes", "parallel"}
     if "kernels" in phases and not needed <= phases:
         ap.error(f"the kernels phase needs the {', '.join(sorted(needed))} phases")
-    if "parallel" in phases and "tiled" not in phases:
-        ap.error("the parallel phase needs the tiled phase (its one-process reference)")
+    if "parallel" in phases and not {"tiled", "flagship", "fastdvd"} <= phases:
+        ap.error("the parallel phase needs the tiled, flagship and fastdvd phases (its "
+                 "one-process references)")
     from adaptivepnp_sci_torch import (
         ADMMConfig,
         AdaptConfig,
@@ -589,6 +625,8 @@ def main(argv: list[str]) -> int:
         load_variables_npz,
     )
     from adaptivepnp_sci_torch.models.ffdnet import FFDNet
+    from adaptivepnp_sci_torch import multihost_validation as mv
+    from adaptivepnp_sci_torch.multihost_validation import flax_style_ffdnet_params
     from adaptivepnp_sci_torch.ops import bayer, cuda_kernels, physics, tv
     from adaptivepnp_sci_torch.ops import convpair as convpair_ops
 
@@ -673,6 +711,100 @@ def main(argv: list[str]) -> int:
             "bound_ms": bound_ms, "bound_by": "bytes",
             "items2_ms": per["admm_items2"]["ms"], "items2_plain_ms": per["admm_items2"]["plain_ms"],
             "items2_bound_ms": byts_items / HBM_BYTES_PER_S * 1e3}
+
+        # the split form of a frame-sharded solve: a rank's 4 of the 8 frames
+        # (the first), the other rank's terms of the frame sum put beside this
+        # rank's where the solve all-gathers them; with 2 items; and one rank
+        # holding all 8 frames against the fused kernel, bit for bit
+        class Beside:
+            """``gather`` of the split form: the other rank's terms after these."""
+
+            def __init__(self, other):
+                self.other = other
+
+            def gather(self, t, dim):
+                return torch.cat([t, self.other], dim)
+
+        class Whole:
+            """``gather`` that hands back every frame's terms, made beforehand
+            (the timed runs: the two launches without the collective)."""
+
+            def __init__(self, terms):
+                self.terms = terms
+
+            def gather(self, t, dim):
+                return self.terms
+
+        class Alone:
+            """``gather`` of a rank that holds every frame."""
+
+            def gather(self, t, dim):
+                return t
+
+        fa = physics.PACKED_FRAME_AXIS
+        bl = nb // 2
+        split_cases = {}
+        for name, sign, rho, c, lam, items in (("admm", -1.0, 0.55, 0.55, 1.0, False),
+                                                ("gap_lam0.5", 1.0, 1.0, 0.01, 0.5, False),
+                                                ("admm_items2", -1.0, 0.55, 0.55, 1.0, True)):
+            th, bb, ph = ((thetas, bds, phis_i) if items else (theta, bd, phi))
+            yy, ps = (ys, psum_i) if items else (y, phis)
+            other = physics.x_update_partial(th[..., bl:, :, :, :], bb[..., bl:, :, :, :],
+                                             ph[..., bl:, :, :, :], sign, rho)[1]
+            inputs = (th[..., :bl, :, :, :].contiguous(), bb[..., :bl, :, :, :].contiguous(), yy,
+                    ph[..., :bl, :, :, :].contiguous(), ps)
+            if sign < 0:
+                kern = lambda f, a=inputs: cuda_kernels.admm_x_update(*a, 0.55, 1.0, frame=f)
+            else:
+                kern = lambda f, a=inputs: cuda_kernels.gap_x_update(*a, 0.5, 0.01, frame=f)
+
+            def plain(a=inputs, o=other, sg=sign, r=rho, cc=c, lm=lam):
+                p_, t_ = physics.x_update_partial(a[0], a[1], a[3], sg, r)
+                return physics.x_update_finish(p_, torch.cat([t_, o], fa), a[2], a[3], a[4], cc,
+                                               lm)
+
+            got, want = kern(Beside(other)), plain()
+            torch.cuda.synchronize()
+            diff = float((got - want).abs().max())
+            require(bool(torch.isfinite(got).all()), f"k1 split {name}: non-finite output")
+            require(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6)),
+                    f"k1 split {name}: kernel disagrees with plain (max abs {diff})")
+            whole = Whole(torch.cat([physics.x_update_partial(inputs[0], inputs[1], inputs[3], sign,
+                                                              rho)[1], other], fa).contiguous())
+            split_cases[name] = {"max_abs": diff, "ms": time_ms(lambda: kern(whole), flush=flush),
+                                 "warm_l2_ms": time_ms(lambda: kern(whole)),
+                                 "plain_ms": time_ms(plain, flush=flush)}
+        one_rank = {}
+        for name, fused, split in (
+                ("admm", lambda: cuda_kernels.admm_x_update(theta, bd, y, phi, phis, 0.55, 1.0),
+                 lambda f: cuda_kernels.admm_x_update(theta, bd, y, phi, phis, 0.55, 1.0,
+                                                      frame=f)),
+                ("gap_lam0.5", lambda: cuda_kernels.gap_x_update(theta, bd, y, phi, phis, 0.5),
+                 lambda f: cuda_kernels.gap_x_update(theta, bd, y, phi, phis, 0.5, frame=f)),
+                ("admm_items2", item_cases["admm_items2"][0],
+                 lambda f: cuda_kernels.admm_x_update(thetas, bds, ys, phis_i, psum_i, 0.55, 1.0,
+                                                      frame=f))):
+            one_rank[name] = bool(torch.equal(split(Alone()), fused()))
+        require(all(one_rank.values()),
+                f"k1 split: one rank's partial and finish differ from the fused kernel {one_rank}")
+        # bytes of a rank's two launches: the partial reads theta, b and phi and
+        # writes p and the terms; the finish reads every frame's terms, p, phi,
+        # y and phi_sum and writes x
+        local = 4 * bl * 4 * h2 * w2
+        split_byts = (5 * local + (nb * 4 * h2 * w2 * 4) + 3 * local + 2 * 4 * h2 * w2 * 4)
+        split_bound_ms = split_byts / HBM_BYTES_PER_S * 1e3
+        emit("k1_split", shape=[nb, 4, h2, w2], rank_frames=bl, items_shape=[2, bl, 4, h2, w2],
+             tolerance="rtol 1e-5, atol 1e-6 against the plain split; one rank holding every "
+             "frame bit for bit against the fused kernel", cases=split_cases,
+             one_rank_equals_fused=one_rank, bytes=split_byts, bound_us=split_bound_ms * 1e3,
+             timed="both launches, the gather left out",
+             bound_basis="bytes / 3.35 TB/s (H100 SXM HBM3 data sheet)", **card)
+        report["x_update_split"] = {
+            "max_abs_err": max(c["max_abs"] for c in split_cases.values()),
+            "ms": split_cases["admm"]["ms"], "warm_l2_ms": split_cases["admm"]["warm_l2_ms"],
+            "plain_ms": split_cases["admm"]["plain_ms"], "bound_ms": split_bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "items2_ms": split_cases["admm_items2"]["ms"]}
 
     # ------------------------------------------------------------------ k2
     if "k2" in phases:
@@ -941,6 +1073,10 @@ def main(argv: list[str]) -> int:
             require(bool(torch.isfinite(res.x_bayer).all() & torch.isfinite(res.x_rgb).all()),
                     "flagship: non-finite output")
             med = statistics.median(secs)
+            if style == "smooth":  # the parallel phase's one-process reference
+                report["flagship_ref"] = {"psnr": res.psnr_per_frame.cpu().numpy(),
+                                          "variables": _flat_variables(res.variables),
+                                          "seconds": med}
             emit("flagship", scene=style, shape=[8, 512, 512], ffdnet={"nc": 96, "nb": 12},
                  weights="random, Flax default init from numpy seed 0",
                  seconds_per_snapshot=med, seconds_runs=secs, frames_per_s=8 / med,
@@ -995,6 +1131,23 @@ def main(argv: list[str]) -> int:
                      bar=f"{db_bar} dB, {dx_kind} |dx| {dx_bar}",
                      psnr_cuda=gpu.psnr_per_frame.mean().item(),
                      psnr_cpu=cpu.psnr_per_frame.mean().item(), launches=counts)
+        # the solvers' default generator (generator=None) is a CPU generator:
+        # the card draws the CPU's adaptation noise
+        prior = fastdvd_prior(FastDVDnet(**modes["fp32"]))
+        (iters, want_counts, db_bar, dx_bar, _), = FASTDVD_PARITY["fp32"]
+        cpu = run_fastdvd(sc, prior, "cpu", iters=iters)
+        cuda_kernels.reset_launches()
+        gpu = run_fastdvd(sc, prior, "cuda", iters=iters)
+        torch.cuda.synchronize()
+        counts = dict(cuda_kernels.launches)
+        dpsnr = float((gpu.psnr_per_frame.cpu() - cpu.psnr_per_frame).abs().max())
+        dx_max = float((gpu.x_bayer.cpu() - cpu.x_bayer).abs().max())
+        emit("fastdvd_parity_default_generator", mode="fp32", shape=[8, 64, 64],
+             iters=list(iters), generator="None on both devices", max_dpsnr_db=dpsnr,
+             max_abs_dx_bayer=dx_max, bar=f"{db_bar} dB, max |dx| {dx_bar}", launches=counts)
+        require(counts == want_counts, f"fastdvd_parity default generator: launches {counts}")
+        require(dpsnr <= db_bar and dx_max <= dx_bar,
+                f"fastdvd_parity default generator: dPSNR {dpsnr} dB, max |dx| {dx_max}")
 
     # ------------------------------------------------------------- fastdvd
     if "fastdvd" in phases:
@@ -1026,6 +1179,13 @@ def main(argv: list[str]) -> int:
                         report.setdefault("launches_convpair", by_shape)
                     if rep:
                         secs.append(dt)
+                    else:
+                        first = _flat_variables(res.variables)
+                # the same call's adapted weights, first run against last: how
+                # far one process is from itself (cuDNN's backward algorithms)
+                start = _flat_variables(fastdvd_params)
+                last = _flat_variables(res.variables)
+                repeat_dw = float(np.linalg.norm(last - first) / np.linalg.norm(last - start))
                 peak = torch.cuda.max_memory_allocated()
                 require(tuple(res.x_bayer.shape) == (8, 512, 512)
                         and tuple(res.x_rgb.shape) == (8, 512, 512, 3), "fastdvd: shapes")
@@ -1033,6 +1193,11 @@ def main(argv: list[str]) -> int:
                         f"fastdvd {mode} {style}: non-finite output")
                 med = statistics.median(secs)
                 results[mode] = res
+                if style == "smooth":  # the parallel phase's one-process references
+                    report[f"fastdvd_ref_{mode}"] = {
+                        "psnr": res.psnr_per_frame.cpu().numpy(),
+                        "x_bayer": res.x_bayer.cpu().numpy(),
+                        "variables": _flat_variables(res.variables), "seconds": med}
                 emit("fastdvd", scene=style, mode=mode, shape=[8, 512, 512],
                      weights="weights/fastdvd.npz", seconds_per_snapshot=med, seconds_runs=secs,
                      frames_per_s=8 / med, warm_start_psnr_db=warm_psnr,
@@ -1040,6 +1205,7 @@ def main(argv: list[str]) -> int:
                      psnr_db=res.psnr_per_frame.mean().item(),
                      ssim=res.ssim_per_frame.mean().item(),
                      gain_over_warm_start_db=res.psnr_per_frame.mean().item() - warm_psnr,
+                     repeat_dw_fraction=repeat_dw,
                      peak_mem_bytes=peak, launches_per_reconstruction=counts, **card)
             emit("fastdvd_modes", scene=style,
                  bf16_minus_fp32_psnr_db=(results["bf16"].psnr_per_frame.mean()
@@ -2143,7 +2309,8 @@ def main(argv: list[str]) -> int:
             # this process runs the CPU plain path
             gloo = pool.submit(mv.launch, 2, d2, "cuda", "gloo", cases, "card", 900.0)
             nccl = pool.submit(mv.launch, 1, d1, "cuda", "nccl", cases, "card", 900.0)
-            cpu = {name: mv.run_case(name, None, "cpu", sizes) for name in cases}
+            cpu = {name: mv.run_case(name, None, "cpu", sizes) for name in cases
+                   if name not in mv.REFUSALS | mv.MUST_FAIL}
             cpu_seconds = time.perf_counter() - t0
             ranks, (world1,) = gloo.result(), nccl.result()
         seconds = time.perf_counter() - t0
@@ -2165,12 +2332,22 @@ def main(argv: list[str]) -> int:
             require(all(c == want_rank for c in per_rank) and counts(world1[name]) == want_w1,
                     f"parallel_parity {name}: launches {per_rank}, world 1 {counts(world1[name])}")
             fields = {}
-            if name == "too_many_shards":
-                require(all(int(r[name]["raised"]) == 1 and bool(r[name]["too_many_shards"])
-                            for r in ranks), "parallel_parity: too many shards not refused")
+            if name in mv.REFUSALS:
+                refused = [mv.outputs(r[name]) for r in ranks]
+                require(all(got and all(bool(v) for v in got.values()) for got in refused),
+                        f"parallel_parity {name}: not refused {refused}")
+            elif name in mv.MUST_FAIL:
+                # the gradient with the frame sum's backward summed over the
+                # ranks: frame (2) times the one-process gradient
+                ratios = [mv.grad_norm_ratios(mv.outputs(r[name]), ref)
+                          for r in ranks for ref in (mv.outputs(world1["frame_loss_grad"]),
+                                                     cpu["frame_loss_grad"])]
+                require(all(abs(v - 2.0) <= 1e-3 for rs in ratios for v in rs.values()),
+                        f"parallel_parity {name}: gradient norm ratios {ratios}")
+                fields = {"gradient_norm_ratios": ratios}
             else:
                 lowp = name == "prior_bf16"
-                d_w1, d_cpu = [], []
+                d_w1, d_cpu, grad_rel = [], [], []
                 for r in ranks:
                     got = mv.outputs(r[name])
                     ref_w1, ref_cpu = mv.outputs(world1[name]), cpu[name]
@@ -2180,9 +2357,22 @@ def main(argv: list[str]) -> int:
                         d_cpu.append(dp_params(params, ref_cpu["params"]))
                     d_w1.append(mv.compare(name, got, ref_w1,
                                            bar["bf16"] if lowp else bar["world1"]))
+                    grads = {k: got.pop(k) for k in list(got) if k.endswith("_grads")}
                     d_cpu.append(mv.compare(name, got, ref_cpu,
                                             bar["bf16"] if lowp else bar["cpu"]))
+                    for k, g in grads.items():
+                        grad_rel.append(float(np.linalg.norm(g - ref_cpu[k])
+                                              / np.linalg.norm(ref_cpu[k])))
                 fields = {"max_scaled_d_world1": max(d_w1), "max_scaled_d_cpu": max(d_cpu)}
+                if name == "frame_loss_grad":
+                    ratios = [mv.grad_norm_ratios(mv.outputs(r[name]), mv.outputs(world1[name]))
+                              for r in ranks]
+                    require(all(abs(v - 1.0) <= bar["world1"] for rs in ratios for v in rs.values())
+                            and max(grad_rel) <= bar["cpu_grad_rel_norm"],
+                            f"parallel_parity {name}: gradient norm ratios {ratios}, against the "
+                            f"CPU {grad_rel}")
+                    fields.update(gradient_norm_ratios_world1=ratios,
+                                  gradient_rel_norm_cpu=grad_rel)
             emit("parallel_parity", case=name, ranks=2, backend="gloo (CUDA tensors); "
                  "world size 1: nccl", launches_per_rank=per_rank,
                  launches_world1=counts(world1[name]),
@@ -2297,6 +2487,70 @@ def main(argv: list[str]) -> int:
              step_collectives_by_key_rank0=tr[0]["step_collectives_by_key"].tolist(),
              case_seconds_per_rank=[float(t["seconds"]) for t in tr],
              peak_mem_bytes_per_rank=peaks["train_full"], **card)
+
+        # the frame-sharded snapshots: against the one-process runs of the
+        # flagship and fastdvd phases (and, for the bf16 row without
+        # adaptation, against one made here)
+        fixed_one = mv.run_case("frame_fastdvd_fixed_full", None, "cuda", full)
+        starts = {"ffdnet": _flat_variables(ffdnet_from_flax(
+            flax_style_ffdnet_params(96, 12, seed=0))), "fastdvd": _flat_variables(fastdvd_params)}
+        frame_runs = {
+            "frame_flagship_full": ("FFDNet flagship, float32", report["flagship_ref"], "ffdnet",
+                                    {"db": PARALLEL_FRAME_DB,
+                                     "dw_fraction": PARALLEL_FRAME_DW_FRACTION}),
+            "frame_fastdvd_fp32_full": ("FastDVDnet Bosphorus row, float32 (remat)",
+                                        report["fastdvd_ref_fp32"], "fastdvd",
+                                        {"db": PARALLEL_FRAME_DB,
+                                         "max_abs_dw": PARALLEL_FRAME_FP32_DW}),
+            "frame_fastdvd_fixed_full": ("FastDVDnet Bosphorus row, bf16, no adaptation",
+                                         {**fixed_one, "seconds": float(
+                                             fixed_one["seconds_per_snapshot"])}, None,
+                                         {"db": PARALLEL_FRAME_DB}),
+            "frame_fastdvd_full": ("FastDVDnet Bosphorus row, bf16", report["fastdvd_ref_bf16"],
+                                   "fastdvd", dict(zip(("db", "rms_dx"),
+                                                       FASTDVD_PARITY["bf16"][1][2:4]))),
+        }
+        report["launches_parallel_frame"] = {}
+        for name, (what, ref, start_key, bars) in frame_runs.items():
+            fr = [r[name] for r in ranks]
+            got = {"db": max(float(np.abs(t["psnr"] - ref["psnr"]).max()) for t in fr)}
+            if "x_bayer" in ref:
+                got["rms_dx"] = max(float(np.sqrt(np.mean((t["x_bayer"] - ref["x_bayer"])
+                                                          .astype(np.float64) ** 2))) for t in fr)
+            if start_key is not None:
+                step = np.linalg.norm(ref["variables"] - starts[start_key])
+                got["dw_fraction"] = max(
+                    float(np.linalg.norm(t["variables"] - ref["variables"]) / step) for t in fr)
+                got["max_abs_dw"] = max(
+                    float(np.abs(t["variables"] - ref["variables"]).max()) for t in fr)
+            per_rank = [{k: int(t[f"launches__{k}"]) for k in _K} for t in fr]
+            report["launches_parallel_frame"][name] = [
+                {**c, **{f"convpair_{n}": int(sum(row[3] for row in t["launches_by_shape"]
+                                                  if tuple(row[:3]) == shp))
+                         for n, shp in CONVPAIR_MAIN_SHAPES.items()}}
+                for c, t in zip(per_rank, fr)]
+            emit("parallel", case=name, shape=[8, full.side, full.side], frame=2, mode=what,
+                 seconds_per_snapshot_per_rank=[float(t["seconds_per_snapshot"]) for t in fr],
+                 seconds_runs_per_rank=[t["seconds_runs"].tolist() for t in fr],
+                 seconds_per_snapshot_one_process=float(ref["seconds"]),
+                 psnr_db=[float(t["psnr"].mean()) for t in fr],
+                 psnr_db_one_process=float(np.mean(ref["psnr"])),
+                 against_one_process=got, bar=bars,
+                 ranks_identical=bool(np.array_equal(fr[0]["psnr"], fr[1]["psnr"])
+                                      and np.array_equal(fr[0]["variables"], fr[1]["variables"])),
+                 launches_per_rank=per_rank,
+                 warmup_collectives_ms_per_rank=[float(t["warmup_collectives_ms"]) for t in fr],
+                 warmup_collectives_per_rank=[int(t["warmup_collectives_count"]) for t in fr],
+                 warmup_collectives_by_key_rank0=fr[0]["warmup_collectives_by_key"].tolist(),
+                 case_seconds_per_rank=[float(t["seconds"]) for t in fr],
+                 peak_mem_bytes_per_rank=peaks[name], **card)
+            require(all(bool(t["finite"]) for t in fr), f"parallel {name}: non-finite output")
+            require(all(c == PARALLEL_LAUNCHES[name] for c in per_rank),
+                    f"parallel {name}: launches per rank {per_rank}")
+            require(np.array_equal(fr[0]["variables"], fr[1]["variables"]),
+                    f"parallel {name}: the ranks' weights differ")
+            require(all(got[k] <= v for k, v in bars.items()),
+                    f"parallel {name}: {got} against the one-process run, bars {bars}")
         emit("parallel_total", seconds=seconds, **card)
 
     # ---------------------------------------------------------------- host
@@ -2422,6 +2676,27 @@ def main(argv: list[str]) -> int:
                 f"a kernel was never launched: {rows}")
         require(all(r["launches_sequence"] > 0 for r in rows[:2]),
                 f"the sequence path missed a kernel: {rows}")
+        # the frame-sharded snapshots: the split x-update (the fused form runs
+        # on none of them), the TV and conv-pair kernels on each rank's frames
+        frame = report["launches_parallel_frame"]
+        for r in rows[1:]:
+            r["launches_parallel_frame_fastdvd_bf16_per_rank"] = [
+                c[r["name"]] for c in frame["frame_fastdvd_full"]]
+        split = report["x_update_split"]
+        rows.append({"name": "x_update_split", "route": "cuda",
+                     "source": "adaptivepnp_sci_torch/csrc/x_update.cu",
+                     "replaces": pallas["x_update"],
+                     "launches": frame["frame_flagship_full"][0]["x_update"],
+                     "launches_per_rank": {n: [c["x_update"] for c in v]
+                                           for n, v in frame.items()},
+                     "max_abs_err": split["max_abs_err"], "ms": split["ms"],
+                     "warm_l2_ms": split["warm_l2_ms"], "items2_ms": split["items2_ms"],
+                     "plain_ms": split["plain_ms"], "bound_ms": split["bound_ms"],
+                     "bound_by": split["bound_by"], "library_ms": split["library_ms"]})
+        require(all(c["x_update"] > 0 for v in frame.values() for c in v)
+                and all(min(r["launches_parallel_frame_fastdvd_bf16_per_rank"]) > 0
+                        for r in rows[1:-1]),
+                f"a kernel was never launched on the frame-sharded path: {rows}")
         print(json.dumps({"kernels": rows}), flush=True)
 
     foreign = sorted(m for m in sys.modules

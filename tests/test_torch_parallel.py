@@ -43,6 +43,9 @@ from adaptivepnp_sci_tpu.train.trainer import load_variables_npz
 jadmm = importlib.import_module("adaptivepnp_sci_tpu.solvers.two_stage_admm")
 SIZES = mv.SIZES["cpu"]
 NPROC = 2
+#: the cases of the parallel paths; the frame-sharded solve's are
+#: ``tests/test_torch_frame_sharded.py``'s
+CASES = [c for c in mv.DEFAULT_CASES["cpu"] if c not in mv.FRAME_CASES]
 #: the port's ranks against its one-process run: float32 differing only in
 #: summation order across ranks (scaled by the larger of 1 and the array's
 #: largest magnitude, as ``multihost_validation.compare``)
@@ -58,7 +61,7 @@ def runs(tmp_path_factory):
     here while the two workers run."""
     torch.set_num_threads(2)
     out = tmp_path_factory.mktemp("ranks")
-    cases = mv.DEFAULT_CASES["cpu"]
+    cases = CASES
     with ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(mv.launch, NPROC, str(out), "cpu", "gloo", cases, "cpu")
         oracles = {name: mv.run_case(name, None, "cpu", SIZES) for name in cases}
@@ -87,7 +90,7 @@ def results(ranks, name):
 
 def test_every_rank_ran_every_case_on_the_plain_path(ranks):
     for r in ranks:
-        assert set(r) == set(mv.DEFAULT_CASES["cpu"])
+        assert set(r) == set(CASES)
         for case in r.values():
             # CPU tensors: every kernel wrapper took its plain version
             assert all(int(v) == 0 for k, v in case.items() if k.startswith("launches__"))
