@@ -25,7 +25,8 @@ Modes (the reference's driver and toggle combinations):
   fastdvd-dd  FastDVDnet with DDnet demosaicking, held-out guard
 
 Usage: python -m adaptivepnp_sci_torch.run_all_scenes [out_dir] [mode|all]
-       [--device cuda|cpu]  (defaults: results/scenes, ffd, cuda)
+       [--device cuda|cpu] [--scenes Runner,...] [--float32]
+       (defaults: results/scenes, ffd, cuda, all six scenes, bf16 U-Nets)
 
 The table goes to ``{out_dir}/scenes_table.md``; the repository's
 ``SCENES.md`` is the JAX package's record and is never written here.
@@ -82,12 +83,13 @@ def _make_scene_data(name: str, b: int, h: int, w: int, n_meas: int):
     )
 
 
-def _build_models(modes: list[str], random_init: bool):
+def _build_models(modes: list[str], random_init: bool, bf16: bool = True):
     """``({denoiser: (prior, variables)}, DDnet or None, its variables)`` for
     ``modes``, as the command line builds them: the default checkpoints
     (``weights/fastdvd.npz``, ``weights/ddnet.npz``; FFDNet's
     ``weights/ffdnet_color.pth``), or with ``random_init`` PyTorch's default
-    initialisation under a fixed seed. FastDVDnet and DDnet in bf16."""
+    initialisation under a fixed seed. FastDVDnet and DDnet in bf16, or in
+    float32 when ``bf16`` is False."""
     from adaptivepnp_sci_torch.cli import REPO_WEIGHTS, _build_denoiser, _load_weights, _seeded_init
     from adaptivepnp_sci_torch.models import convert
     from adaptivepnp_sci_torch.models.ddnet import DDnet
@@ -97,12 +99,12 @@ def _build_models(modes: list[str], random_init: bool):
         d = MODES[m][0]
         if d not in priors:
             _, prior, variables = _build_denoiser(d, None, random_init=random_init,
-                                                  bf16=d == "fastdvd")
+                                                  bf16=bf16 and d == "fastdvd")
             priors[d] = (prior, variables)
     dd = dd_vars = None
     if any(MODES[m][1] for m in modes):
         # bf16 U-Nets: the JAX package measured the same PSNR/SSIM, 21 % faster
-        dd = DDnet(dtype=torch.bfloat16)
+        dd = DDnet(dtype=torch.bfloat16 if bf16 else None)
         dd_vars = _load_weights(None, convert.load_ddnet, convert.ddnet_from_flax,
                                 lambda: _seeded_init(DDnet, 1),
                                 defaults=(str(REPO_WEIGHTS / "ddnet.npz"),),
@@ -128,11 +130,12 @@ def guard_picks(out_dir: str, name: str, mode: str, b: int) -> list[int]:
 def main(out_dir: str = "results/scenes", mode: str = "ffd", b: int = 8,
          h: int = 512, w: int = 512, n_meas: int = 2,
          scenes: list[str] | None = None, random_init: bool = False,
-         device: torch.device | str = "cuda") -> list[tuple]:
+         device: torch.device | str = "cuda", bf16: bool = True) -> list[tuple]:
     """Run the six-scene experiment for one mode (or ``mode='all'``) on
-    ``device``; returns one row per scene and mode: ``(scene, mode, style,
-    sigma/255, iters, warm dB, final dB, SSIM, warm s/meas, recon s/meas)``,
-    the times the least over the measurements."""
+    ``device``, FastDVDnet and DDnet in float32 unless ``bf16``; returns one
+    row per scene and mode: ``(scene, mode, style, sigma/255, iters, warm dB,
+    final dB, SSIM, warm s/meas, recon s/meas)``, the times the least over
+    the measurements."""
     from adaptivepnp_sci_torch.configs.scenes import admm_config_for
     from adaptivepnp_sci_torch.data.mat_io import load_warm_start, save_results, save_warm_start
     from adaptivepnp_sci_torch.pipelines import run_reconstruction, run_warm_start
@@ -142,7 +145,7 @@ def main(out_dir: str = "results/scenes", mode: str = "ffd", b: int = 8,
         raise ValueError(f"unknown mode {mode!r}; choose from {', '.join(MODES)} or all")
     os.makedirs(out_dir, exist_ok=True)
     modes = list(MODES) if mode == "all" else [mode]
-    priors, dd, dd_vars = _build_models(modes, random_init)
+    priors, dd, dd_vars = _build_models(modes, random_init, bf16)
 
     rows = []
     for name in SCENE_STANDINS:
@@ -213,5 +216,10 @@ if __name__ == "__main__":
     ap.add_argument("mode", nargs="?", default="ffd", choices=[*MODES, "all"])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu: the plain versions of the kernels")
+    ap.add_argument("--scenes", default=None,
+                    help=f"comma-separated subset of {','.join(SCENE_STANDINS)}")
+    ap.add_argument("--float32", action="store_true",
+                    help="FastDVDnet and DDnet in float32 (default: bf16)")
     args = ap.parse_args()
-    main(args.out_dir, args.mode, device=_check_device(args.device))
+    main(args.out_dir, args.mode, scenes=args.scenes and args.scenes.split(","),
+         device=_check_device(args.device), bf16=not args.float32)

@@ -50,7 +50,13 @@ ranks: the bf16 prior at 512^2, the ``tiled`` phase's 2048^2 snapshot with its
 tile groups over the ranks against that phase's one-process run, a FastDVDnet
 training step (``parallel``, which needs ``tiled``); and
 the native ``.npy`` prefetch ring (built with g++, 1 GiB streamed) and a
-``torch.profiler`` trace of a flagship step (``host``).
+``torch.profiler`` trace of a flagship step (``host``). Then the weight
+tooling (``weights``): ``eval_weights`` on both shipped FastDVDnet sets,
+``regenerate_weights`` of FastDVDnet and DDnet, ``harvest_iterates`` with the
+bf16 student, ``distill_iterates`` and ``distill_fastdvd``, the first two
+also against the CPU at 64x64x8; and ``measure_tile_seams`` at 1024^2 and,
+against the CPU, at 64^2, with the seam band of the ``tiled`` snapshot
+(``seams``). ``--phases ...,seams_halo`` adds that snapshot at overlap 32.
 Each phase prints one JSON line; any failure exits nonzero. The last line is
 ``{"ok": true, "device": {...}}``. It exits 1 without printing a result when
 no CUDA device is present, and fails when the package is not beside it.
@@ -72,7 +78,11 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "k1", "k2", "k3", "slice_parity", "flagship",
           "fastdvd_parity", "fastdvd", "ddnet_parity", "ddnet", "drivers_parity", "tiled",
           "sequence", "pipeline_parity", "cli", "train_parity", "train", "scenes_parity",
-          "scenes", "models_parity", "parallel_parity", "parallel", "host", "kernels")
+          "scenes", "models_parity", "parallel_parity", "parallel", "host", "weights", "seams",
+          "kernels")
+#: phases run only when ``--phases`` names them: the tiled phase's 2048^2
+#: snapshot again at overlap 32, for its seam band (~30 s)
+EXTRA_PHASES = ("seams_halo",)
 
 #: NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth, non-tensor fp32 rate and
 #: dense bf16 rate of the tensor cores
@@ -373,6 +383,38 @@ PARALLEL_FRAME_DW_FRACTION = 1e-3
 #: flagship's 0.85M, and their distance read 1.09e-3 of the adaptation's
 #: change on an H100, above PARALLEL_FRAME_DW_FRACTION; it is printed
 PARALLEL_FRAME_FP32_DW = 2 * 2e-7 * 4
+#: the weight tooling. ``eval_weights`` on both shipped FastDVDnet sets at
+#: 512^2: the 40-iteration warm start once (K1 and K2 40 each), then each
+#: set's 36 ADMM x-updates (float32 FastDVDnet: no conv pair; the Jacobian's
+#: power iteration and the standalone call run no kernel); the same on the
+#: card and the CPU at 64^2, each set's standalone and in-loop dB within
+#: ``db`` and its sigma_max within ``sigma_max_rel`` of the CPU's (the
+#: adaptation noise comes from a CPU generator on both)
+WEIGHT_SETS = ("weights/fastdvd.npz", "weights/fastdvd_smooth.npz")
+EVAL_WEIGHTS_LAUNCHES = _launches(40 + 36 * len(WEIGHT_SETS), 40)
+EVAL_WEIGHTS_PARITY = {"db": 0.05, "sigma_max_rel": 1e-3}
+#: ``regenerate_weights`` of FastDVDnet and DDnet at their published widths
+#: (batch 32 of 64x64 crops of 256 and 512 px videos); training runs no kernel
+REGEN = dict(steps=3, n_clips=64)
+#: ``harvest_iterates`` on one style and seed at 512^2, the teacher (this
+#: script's Flax-scheme FFDNet, numpy seed 0) and the bf16 student
+#: (``weights/fastdvd.npz``): the warm start, 32 x-updates a loop, the
+#: student's 8 conv pairs a call (4 at each main-path shape); card vs CPU at
+#: 64^2: the teacher loop's crops (float32) within ``teacher`` of the largest
+#: magnitude, the student's (bf16, the loop feeding its rounding back) to the
+#: bf16 routes' rms bar (``FASTDVD_PARITY``)
+HARVEST = dict(size=512, styles=("leaves",), seeds=(11,))
+HARVEST_LAUNCHES = _launches(40 + 2 * 32, 40, 8 * 32)
+HARVEST_PARITY = {"teacher": 1e-4, "student_rms": 3e-2}
+#: ``measure_tile_seams`` at its defaults (1024^2, tile 512, band 8): the
+#: warm start on the whole scene (K2 on 512^2 planes), then per solve (two
+#: per overlap 0, 16, 32) one x-update an iteration for the 4 tiles
+SEAMS_LAUNCHES = _launches(40 + 6 * 25, 40)
+#: the table at 64^2 (32 px tiles, overlaps 0 and 16: the CPU's time grows
+#: with the halo) on the card and the CPU: each overlap's full, seam-band and
+#: interior dB within ``SEAMS_PARITY_DB`` (the fixed-weight float32 FFDNet loop)
+SEAMS_SMALL = dict(h=64, tile=32, band=8, overlaps=(0, 16))
+SEAMS_PARITY_DB = 1e-3
 #: host plumbing: ~1 GiB of .npy clips streamed through the native ring
 HOST_NPY = dict(files=64, shape=(4, 1024, 1024))
 
@@ -573,11 +615,12 @@ def flagship_profile(torch, run, trace: str | None) -> dict:
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {','.join(PHASES)}")
+                    help=f"comma-separated subset of {','.join(PHASES)} (the default), "
+                         f"with {','.join(EXTRA_PHASES)}")
     ap.add_argument("--trace", help="write the flagship's profiler trace (Chrome JSON) here")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    unknown = phases - set(PHASES)
+    unknown = phases - set(PHASES) - set(EXTRA_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -587,9 +630,13 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     needed = {"k1", "k2", "k3", "flagship", "fastdvd", "ddnet", "tiled", "sequence", "cli",
-              "train", "scenes", "parallel"}
+              "train", "scenes", "parallel", "weights", "seams"}
     if "kernels" in phases and not needed <= phases:
         ap.error(f"the kernels phase needs the {', '.join(sorted(needed))} phases")
+    if "seams" in phases and "tiled" not in phases:
+        ap.error("the seams phase needs the tiled phase (its 2048^2 snapshot)")
+    if "seams_halo" in phases and not {"tiled", "seams"} <= phases:
+        ap.error("the seams_halo phase needs the tiled and seams phases")
     if "parallel" in phases and not {"tiled", "flagship", "fastdvd"} <= phases:
         ap.error("the parallel phase needs the tiled, flagship and fastdvd phases (its "
                  "one-process references)")
@@ -1558,7 +1605,8 @@ def main(argv: list[str]) -> int:
                 # the ``parallel`` phase's reference (4) and its wrong run (2)
                 report[f"tiled_chunk{chunk}"] = {
                     "psnr": res.psnr_per_frame.cpu().numpy(), "seconds": secs[-1],
-                    "variables": _flat_variables(res.variables)}
+                    "variables": _flat_variables(res.variables),
+                    "x_bayer": res.x_bayer.cpu().numpy() if chunk == 4 else None}
                 require(tuple(res.x_bayer.shape) == (8, size, size)
                         and tuple(res.x_rgb.shape) == (8, size, size, 3), "tiled: shapes")
                 require(bool(torch.isfinite(res.x_bayer).all() & torch.isfinite(res.x_rgb).all()),
@@ -1588,6 +1636,8 @@ def main(argv: list[str]) -> int:
             warm_ms = time_ms(lambda: gap_tv(sc.meas, sc.mask, GapTVConfig(iters=40),
                                              device="cuda"), n=3)
         emit("tiled_breakdown", warm_start_2048_40_ms=warm_ms, **card)
+        if "seams" in phases:  # its scene and run
+            report["tiled_run"] = (sc, prior, cfg)
         del sc, warm, res
 
     # ------------------------------------------------------------ sequence
@@ -2073,24 +2123,9 @@ def main(argv: list[str]) -> int:
         def run_mode(out_dir, mode, device, sc_kw, random_init, bf16=True):
             """``run_all_scenes.main`` for one mode; FastDVDnet and DDnet in
             float32 when ``bf16`` is False."""
-            build = scenes_run._build_models
-
-            def models(run_modes, random_init):
-                # the command line's float32 FastDVDnet, on the same weights
-                priors, dd, dd_vars = build(run_modes, random_init)
-                if "fastdvd" in priors:
-                    priors["fastdvd"] = (fastdvd_prior(FastDVDnet(**modes["fp32"])),
-                                         priors["fastdvd"][1])
-                return priors, None if dd is None else DDnet(), dd_vars
-
-            if not bf16:
-                scenes_run._build_models = models
-            try:
-                with contextlib.redirect_stdout(io.StringIO()):
-                    return scenes_run.main(str(out_dir), mode, random_init=random_init,
-                                           device=device, **sc_kw)
-            finally:
-                scenes_run._build_models = build
+            with contextlib.redirect_stdout(io.StringIO()):
+                return scenes_run.main(str(out_dir), mode, random_init=random_init,
+                                       device=device, bf16=bf16, **sc_kw)
 
     if "scenes_parity" in phases:
         sp = SCENES_PARITY
@@ -2347,7 +2382,7 @@ def main(argv: list[str]) -> int:
                 fields = {"gradient_norm_ratios": ratios}
             else:
                 lowp = name == "prior_bf16"
-                d_w1, d_cpu, grad_rel = [], [], []
+                d_w1, d_cpu, grad_rel, grad_cpu = [], [], [], []
                 for r in ranks:
                     got = mv.outputs(r[name])
                     ref_w1, ref_cpu = mv.outputs(world1[name]), cpu[name]
@@ -2363,6 +2398,7 @@ def main(argv: list[str]) -> int:
                     for k, g in grads.items():
                         grad_rel.append(float(np.linalg.norm(g - ref_cpu[k])
                                               / np.linalg.norm(ref_cpu[k])))
+                        grad_cpu.append(mv.compare(name, {k: g}, {k: ref_cpu[k]}, np.inf))
                 fields = {"max_scaled_d_world1": max(d_w1), "max_scaled_d_cpu": max(d_cpu)}
                 if name == "frame_loss_grad":
                     ratios = [mv.grad_norm_ratios(mv.outputs(r[name]), mv.outputs(world1[name]))
@@ -2372,7 +2408,8 @@ def main(argv: list[str]) -> int:
                             f"parallel_parity {name}: gradient norm ratios {ratios}, against the "
                             f"CPU {grad_rel}")
                     fields.update(gradient_norm_ratios_world1=ratios,
-                                  gradient_rel_norm_cpu=grad_rel)
+                                  gradient_rel_norm_cpu=grad_rel,
+                                  gradient_max_scaled_d_cpu=grad_cpu)
             emit("parallel_parity", case=name, ranks=2, backend="gloo (CUDA tensors); "
                  "world size 1: nccl", launches_per_rank=per_rank,
                  launches_world1=counts(world1[name]),
@@ -2622,6 +2659,186 @@ def main(argv: list[str]) -> int:
              step_s_untraced=[timer.history[0], *timer.history[2:]],
              step_s_traced=timer.history[1], video="not run (no cv2 on this machine)", **card)
 
+    # ------------------------------------------------------------- weights
+    if phases & {"weights", "seams", "seams_halo"}:
+        import os
+        import tempfile
+
+        from adaptivepnp_sci_torch.train.trainer import (
+            load_checkpoint_variables,
+            save_variables_npz,
+        )
+
+        tool_dir = tempfile.TemporaryDirectory()
+        # the teacher FFDNet of the distillation chain and of the seam table:
+        # this script's Flax-scheme weights (their dB mean nothing)
+        teacher = os.path.join(tool_dir.name, "teacher.npz")
+        save_variables_npz(teacher, flax_style_ffdnet_params(96, 12, seed=0))
+
+        def counted(run):
+            """``run()``'s result, its seconds and its launches, the counts
+            zeroed just before it."""
+            torch.cuda.synchronize()
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            return (out, time.perf_counter() - t0,
+                    {**cuda_kernels.launches,
+                     **{f"convpair_{n}": cuda_kernels.convpair_launches.get(shp, 0)
+                        for n, shp in CONVPAIR_MAIN_SHAPES.items()}})
+
+        def trained(trainer, losses, out_dir):
+            """The written .npz read back equal to the trained weights."""
+            back = load_checkpoint_variables(os.path.join(out_dir, "final.npz"))
+            same = all(torch.equal(back[k], v.cpu()) for k, v in trainer.variables.items()
+                       if not k.endswith("num_batches_tracked"))
+            return same and bool(np.isfinite(losses).all())
+
+    if "weights" in phases:
+        from adaptivepnp_sci_torch import (
+            distill_fastdvd,
+            distill_iterates,
+            eval_weights,
+            harvest_iterates,
+            regenerate_weights,
+        )
+
+        no_kernel = {**_launches(), **{f"convpair_{n}": 0 for n in CONVPAIR_MAIN_SHAPES}}
+        sets = [str(ROOT / w) for w in WEIGHT_SETS]
+        rows, secs, counts = counted(lambda: eval_weights.main(sets, size=512, device="cuda"))
+        report["launches_eval_weights"] = counts
+        emit("weights", tool="eval_weights", size=512, seconds=secs,
+             sets=[{"weights": w, "standalone_db": r[1], "in_loop_db": r[2], "sigma_max": r[3]}
+                   for w, r in zip(WEIGHT_SETS, rows)],
+             sigma_max_claim="~0.73 (scripts/eval_weights.py docstring)", launches=counts,
+             **card)
+        require(counts == {**no_kernel, **EVAL_WEIGHTS_LAUNCHES},
+                f"weights eval_weights: launches {counts}")
+        require(all(np.isfinite(r[1:]).all() for r in rows), f"weights eval_weights: {rows}")
+        gpu64 = eval_weights.main(sets, size=64, device="cuda")
+        cpu64 = eval_weights.main(sets, size=64, device="cpu")
+        d = {"db": max(abs(g[i] - c[i]) for g, c in zip(gpu64, cpu64) for i in (1, 2)),
+             "sigma_max_rel": max(abs(g[3] - c[3]) / c[3] for g, c in zip(gpu64, cpu64))}
+        emit("weights", tool="eval_weights", size=64, card=[list(r[1:]) for r in gpu64],
+             cpu=[list(r[1:]) for r in cpu64], against_cpu=d, bar=EVAL_WEIGHTS_PARITY)
+        require(all(d[k] <= v for k, v in EVAL_WEIGHTS_PARITY.items()),
+                f"weights eval_weights at 64^2: {d} against the CPU")
+
+        for network in ("fastdvd", "ddnet"):
+            out_dir = os.path.join(tool_dir.name, network)
+            (trainer, losses), secs, counts = counted(lambda: regenerate_weights.main(
+                network, REGEN["steps"], out_dir=out_dir, n_clips=REGEN["n_clips"],
+                device="cuda"))
+            ok = trained(trainer, losses, out_dir)
+            emit("weights", tool="regenerate_weights", network=network, **REGEN, batch=32,
+                 clip=64, losses=losses, seconds=secs, npz_read_back=ok, launches=counts,
+                 **card)
+            require(ok and counts == no_kernel, f"weights regenerate {network}: {ok}, {counts}")
+
+        student = str(ROOT / "weights" / "fastdvd.npz")
+        pool = os.path.join(tool_dir.name, "pool.npz")
+        (clips, sigmas), secs, counts = counted(lambda: harvest_iterates.main(
+            pool, teacher, student, device="cuda", **HARVEST))
+        report["launches_harvest"] = counts
+        want = {**HARVEST_LAUNCHES, **{f"convpair_{n}": HARVEST_LAUNCHES["convpair"] // 2
+                                       for n in CONVPAIR_MAIN_SHAPES}}
+        emit("weights", tool="harvest_iterates", **HARVEST, priors=["teacher", "student bf16"],
+             clips=list(clips.shape), seconds=secs, launches=counts, **card)
+        require(counts == want, f"weights harvest: launches {counts}")
+        require(clips.shape == (2 * 32 * 4, 5, 64, 64, 3) and bool(np.isfinite(clips).all()),
+                f"weights harvest: clips {clips.shape}")
+        small = dict(HARVEST, size=64)
+        got, _ = harvest_iterates.main(os.path.join(tool_dir.name, "card64.npz"), teacher,
+                                       student, device="cuda", **small)
+        ref, _ = harvest_iterates.main(os.path.join(tool_dir.name, "cpu64.npz"), teacher,
+                                       student, device="cpu", **small)
+        half = len(ref) // 2  # the teacher loop, then the student loop
+        d = {"teacher": float(np.abs(got[:half] - ref[:half]).max()
+                              / max(1.0, float(np.abs(ref[:half]).max()))),
+             "student_rms": float(np.sqrt(np.mean((got[half:] - ref[half:]).astype(np.float64)
+                                                  ** 2)))}
+        emit("weights", tool="harvest_iterates", size=64, against_cpu=d, bar=HARVEST_PARITY)
+        require(all(d[k] <= v for k, v in HARVEST_PARITY.items()),
+                f"weights harvest at 64^2: {d} against the CPU")
+
+        for tool, run in (
+                ("distill_iterates", lambda d: distill_iterates.main(
+                    pool, teacher, steps=3, jac_weight=0.1, n_synth=32, out_dir=d,
+                    device="cuda")),
+                ("distill_fastdvd", lambda d: distill_fastdvd.main(
+                    teacher, steps=1, n_clips=32, out_dir=d, device="cuda"))):
+            out_dir = os.path.join(tool_dir.name, tool)
+            (trainer, losses), secs, counts = counted(lambda: run(out_dir))
+            ok = trained(trainer, losses, out_dir)
+            emit("weights", tool=tool, steps=trainer.step, losses=losses, seconds=secs,
+                 npz_read_back=ok, launches=counts, **card)
+            require(ok and counts == no_kernel, f"weights {tool}: {ok}, {counts}")
+
+    # --------------------------------------------------------------- seams
+    if "seams" in phases:
+        from adaptivepnp_sci_torch import measure_tile_seams as seams
+
+        fields = ("overlap", "full_db", "seam_db", "interior_db", "s_per_solve")
+        rows, secs, counts = counted(lambda: seams.main(teacher, device="cuda"))
+        report["launches_seams"] = counts
+        emit("seams", tool="measure_tile_seams", shape=[8, 1024, 1024], tile=512, band=8,
+             weights="Flax-scheme FFDNet (numpy seed 0): dB mean nothing",
+             rows=[dict(zip(fields, r)) for r in rows], seconds=secs, launches=counts, **card)
+        require(counts == {**SEAMS_LAUNCHES, **{f"convpair_{n}": 0 for n in CONVPAIR_MAIN_SHAPES}},
+                f"seams: launches {counts}")
+        got = seams.main(teacher, **SEAMS_SMALL, device="cuda")
+        ref = seams.main(teacher, **SEAMS_SMALL, device="cpu")
+        d = max(abs(g[i] - c[i]) for g, c in zip(got, ref) for i in (1, 2, 3))
+        emit("seams", tool="measure_tile_seams", **SEAMS_SMALL,
+             card=[dict(zip(fields[:4], r)) for r in got],
+             cpu=[dict(zip(fields[:4], r)) for r in ref], against_cpu_db=d, bar_db=SEAMS_PARITY_DB)
+        require(d <= SEAMS_PARITY_DB, f"seams at {SEAMS_SMALL}: {d} dB from the CPU")
+        # the tiled phase's 2048^2 FastDVDnet snapshot (overlap 0): PSNR on
+        # the seam band and the interior
+        sc = report["tiled_run"][0]
+        full, seam, interior = seams.seam_psnrs(sc.orig_bayer, report["tiled_chunk4"]["x_bayer"],
+                                                TILED["tile"], 8)
+        emit("seams", tool="band_masks / masked_psnr", shape=[8, TILED["size"], TILED["size"]],
+             tile=TILED["tile"], overlap=0, band=8, tile_chunk=4,
+             mode="bf16 FastDVDnet, adaptation shared over the tiles",
+             run="the tiled phase's tile_chunk=4 snapshot", full_db=full, seam_db=seam,
+             interior_db=interior, seam_delta_db=interior - seam, **card)
+        del sc
+
+    # ---------------------------------------------------------- seams_halo
+    if "seams_halo" in phases:
+        # the same 2048^2 snapshot at overlap 32: the seam band and interior
+        sc, prior, cfg = report["tiled_run"]
+        tile = TILED["tile"]
+
+        def snapshot32():
+            warm = gap_tv(sc.meas, sc.mask, GapTVConfig(iters=40), device="cuda")
+            return two_stage_admm_tiled(
+                sc.meas, sc.mask, cfg, tile=tile, prior=prior, params=fastdvd_params,
+                orig_bayer=sc.orig_bayer, x0_bayer=warm.x_bayer, tile_chunk=4, overlap=32,
+                generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+
+        res, secs, counts = counted(snapshot32)
+        window = {n: (c, (tile + 64) * h // TILED["tile"], (tile + 64) * h // TILED["tile"])
+                  for n, (c, h, _) in CONVPAIR_MAIN_SHAPES.items()}
+        by_window = {n: cuda_kernels.convpair_launches.get(shp, 0) for n, shp in window.items()}
+        full, seam, interior = seams.seam_psnrs(sc.orig_bayer, res.x_bayer.cpu().numpy(), tile, 8)
+        emit("seams", tool="band_masks / masked_psnr", shape=[8, TILED["size"], TILED["size"]],
+             tile=tile, overlap=32, band=8, tile_chunk=4,
+             mode="bf16 FastDVDnet, adaptation shared over the tiles", full_db=full,
+             seam_db=seam, interior_db=interior, seam_delta_db=interior - seam,
+             seconds_per_snapshot=secs, launches=counts, convpair_launches_by_window=by_window,
+             **card)
+        require(dict(cuda_kernels.launches) == TILED_LAUNCHES[4]
+                and by_window == {n: 16 * 36 * 4 for n in window},
+                f"seams 2048^2 overlap 32: launches {counts}, by window {by_window}")
+        del sc, res
+
+    if phases & {"weights", "seams", "seams_halo"}:
+        report.pop("tiled_run", None)
+        tool_dir.cleanup()
+
     # ------------------------------------------------------------- kernels
     if "kernels" in phases:
         # launches on the main paths: the flagship's for its two kernels, the
@@ -2635,6 +2852,7 @@ def main(argv: list[str]) -> int:
         launches_train = dict(report["launches_train"])
         launches_scenes = dict(report["launches_scenes"])
         launches_parallel = [dict(r) for r in report["launches_parallel_tiled"]]
+        tools = {k: report[f"launches_{k}"] for k in ("eval_weights", "harvest", "seams")}
         for name, shape in CONVPAIR_MAIN_SHAPES.items():
             launches_scenes[f"convpair_{name}"] = report["launches_convpair_scenes"].get(shape, 0)
             launches_cli[f"convpair_{name}"] = report["launches_convpair_cli"].get(shape, 0)
@@ -2664,6 +2882,7 @@ def main(argv: list[str]) -> int:
                          "launches_train": launches_train[name],
                          "launches_scenes": launches_scenes[name],
                          "launches_parallel_tiled_per_rank": [p[name] for p in launches_parallel],
+                         **{f"launches_{k}": v[name] for k, v in tools.items()},
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                          "previous_ms": r.get("previous_ms"), "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2674,8 +2893,11 @@ def main(argv: list[str]) -> int:
                     and r["launches_scenes"] > 0
                     and min(r["launches_parallel_tiled_per_rank"]) > 0 for r in rows),
                 f"a kernel was never launched: {rows}")
-        require(all(r["launches_sequence"] > 0 for r in rows[:2]),
-                f"the sequence path missed a kernel: {rows}")
+        require(all(r["launches_sequence"] > 0 and r["launches_eval_weights"] > 0
+                    and r["launches_seams"] > 0 for r in rows[:2]),
+                f"the sequence, eval_weights or seam path missed a kernel: {rows}")
+        require(all(r["launches_harvest"] > 0 for r in rows),
+                f"harvest_iterates missed a kernel: {rows}")
         # the frame-sharded snapshots: the split x-update (the fused form runs
         # on none of them), the TV and conv-pair kernels on each rank's frames
         frame = report["launches_parallel_frame"]

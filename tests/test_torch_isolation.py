@@ -156,6 +156,23 @@ assert multihost_validation.CASES and callable(native_loader.iter_npy_prefetched
 timer = profiling.StepTimer()
 with timer.measure() as h:
     h["out"] = torch.ones(2)
+# the weight tooling: the Jacobian's power iteration, the FFDNet teacher from a
+# /-keyed .npz, the training schedule, the seam metric
+from adaptivepnp_sci_torch import (distill_fastdvd, distill_iterates, eval_weights,
+                                   harvest_iterates, measure_tile_seams, regenerate_weights)
+from adaptivepnp_sci_torch.train.trainer import save_variables_npz
+smax = eval_weights.sigma_max_eval(FastDVDnet(), params, torch.rand(1, 5, 8, 8, 3),
+                                   torch.Generator().manual_seed(0), iters=1)
+assert smax > 0
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "teacher.npz")
+    save_variables_npz(path, multihost_validation.flax_style_ffdnet_params(96, 12, seed=0))
+    with torch.no_grad():
+        out = distill_fastdvd.teacher_fn(path, "cpu")(torch.rand(2, 8, 8, 3), torch.full((2,), 0.1))
+    assert out.shape == (2, 8, 8, 3)
+assert regenerate_weights.schedule(64, 6) == (2, (2, 2))
+assert len(measure_tile_seams.seam_psnrs(sc.orig_bayer, sc.orig_bayer * 0.9, 8, 2)) == 3
+assert callable(harvest_iterates.run_loop_and_harvest) and callable(distill_iterates.make_pool)
 try:
     ab_convpair.main(32, 16, 1)
 except RuntimeError as err:

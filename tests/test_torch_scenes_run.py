@@ -8,8 +8,9 @@ against the JAX script ``scripts/run_all_scenes.py`` on the CPU, at B = 4,
   held-out guard, on Beauty with ``random_init``. The guard keeps the warm
   start on both sides, so the iterates are held through their PSNR traces;
 - ``fastdvd-dd-f32``: the same row in float32 on the trained
-  ``weights/fastdvd.npz`` and ``weights/ddnet.npz``, where the guard keeps
-  ADMM iterates: the iterates themselves are held to JAX's.
+  ``weights/fastdvd.npz`` and ``weights/ddnet.npz``, on Beauty and on Runner
+  (the longest schedule, 40/15 iterations), where the guard keeps ADMM
+  iterates: the iterates themselves are held to JAX's.
 
 ``random_init`` is the JAX script's Flax initialisation, carried into the
 port through ``models/convert`` (the port's ``_build_models`` is replaced by
@@ -57,7 +58,7 @@ SIZE = dict(b=B, h=32, w=32, n_meas=2)
 CASES = {
     "ffd": ("ffd", ["Beauty", "Runner"], True, False, 1e-4, None),
     "fastdvd-dd": ("fastdvd-dd", ["Beauty"], True, True, 1e-3, 1e-2),
-    "fastdvd-dd-f32": ("fastdvd-dd", ["Beauty"], False, False, 1e-4, 1e-4),
+    "fastdvd-dd-f32": ("fastdvd-dd", ["Beauty", "Runner"], False, False, 1e-4, 1e-4),
 }
 
 
@@ -95,8 +96,8 @@ def _port_models(port_build, bf16):
     """The port's model builder with FastDVDnet's adaptation noise off: with
     ``random_init`` on the JAX script's variables; in float32 when ``bf16``
     is False."""
-    def build_models(modes, random_init):
-        priors, dd, dd_vars = port_build(modes, random_init)
+    def build_models(modes, random_init, *rest):
+        priors, dd, dd_vars = port_build(modes, random_init, *rest)
         for d, (prior, sd) in list(priors.items()):
             if random_init:
                 _, _, jvars = jcli._build_denoiser(d, None, random_init=True,
