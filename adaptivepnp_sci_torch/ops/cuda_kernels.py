@@ -31,7 +31,10 @@ carries a hash of its source and flags, so an edited source is rebuilt.
 A wrapper given CPU tensors runs the plain PyTorch version
 (:mod:`.physics`, :mod:`.tv`, :mod:`.convpair`). Given CUDA tensors it launches its kernel on
 the current stream or raises; a failed build or launch is never caught to
-fall back. :data:`launches` counts kernel launches per kernel.
+fall back. The x-update and TV wrappers take ``use_kernels`` (the solvers'
+switch, JAX's ``use_pallas``; :func:`runs_kernel`): ``False`` runs the plain
+version on any device, ``True`` insists on the kernel. :data:`launches`
+counts kernel launches per kernel.
 """
 
 from __future__ import annotations
@@ -171,6 +174,19 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: cudaError {rc}")
 
 
+def runs_kernel(t: Tensor, use_kernels: bool | None) -> bool:
+    """Whether a wrapper given ``t`` launches its kernel: by ``t``'s device
+    when ``use_kernels`` is None (the plain version on the CPU, the kernel
+    elsewhere); the plain version on any device when it is False; the
+    kernel when it is True, which a CPU tensor refuses with a ``ValueError``."""
+    if use_kernels is None:
+        return t.device.type != "cpu"
+    if use_kernels and t.device.type == "cpu":
+        raise ValueError("use_kernels=True: the CUDA kernels take CUDA tensors, "
+                         "not CPU tensors")
+    return bool(use_kernels)
+
+
 def _x_update_cuda(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tensor,
                    sign: float, rho: float, c: float, lam: float, frame=None) -> Tensor:
     if theta.dim() not in (4, 5):
@@ -237,7 +253,8 @@ def _x_update_split(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Ten
 
 
 def admm_x_update(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tensor,
-                  rho: float, alpha: float, frame=None) -> Tensor:
+                  rho: float, alpha: float, frame=None, use_kernels: bool | None = None
+                  ) -> Tensor:
     """Fused equivalent of :func:`physics.admm_x_update`: ``theta``, ``b``
     ``(B, 4, h, w)`` with ``y``, ``phi_s`` ``(4, h, w)``, or with an item axis
     in one launch: ``theta``, ``b`` ``(N, B, 4, h, w)``, ``y`` ``(N, 4, h, w)``,
@@ -249,8 +266,9 @@ def admm_x_update(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tenso
     concatenates every rank's ``t`` along ``dim`` in frame order (a
     :class:`~adaptivepnp_sci_torch.adapt.online.FrameShard`); ``phi_s`` is
     the whole cube's. The update then runs as the split form's two launches,
-    the terms of the frame sum gathered between them."""
-    if theta.device.type == "cpu":
+    the terms of the frame sum gathered between them. ``use_kernels``: see
+    :func:`runs_kernel`."""
+    if not runs_kernel(theta, use_kernels):
         if frame is not None:
             return _x_update_split(theta, b, y, phi, phi_s, -1.0, rho, alpha * rho, 1.0, frame)
         return physics.admm_x_update(theta, b, y, phi, phi_s, rho, alpha)
@@ -258,10 +276,12 @@ def admm_x_update(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tenso
 
 
 def gap_x_update(theta: Tensor, b: Tensor, y: Tensor, phi: Tensor, phi_s: Tensor,
-                 lam: float = 1.0, gamma: float = 0.01, frame=None) -> Tensor:
+                 lam: float = 1.0, gamma: float = 0.01, frame=None,
+                 use_kernels: bool | None = None) -> Tensor:
     """Fused equivalent of :func:`physics.gap_x_update`, for any ``lam``, over
-    the shapes and with the ``frame`` of :func:`admm_x_update`."""
-    if theta.device.type == "cpu":
+    the shapes and with the ``frame`` and ``use_kernels`` of
+    :func:`admm_x_update`."""
+    if not runs_kernel(theta, use_kernels):
         if frame is not None:
             return _x_update_split(theta, b, y, phi, phi_s, 1.0, 1.0, gamma, lam, frame)
         return physics.gap_x_update(theta, b, y, phi, phi_s, lam, gamma)
@@ -356,14 +376,14 @@ def tv_chambolle_planes_cuda(planes: Tensor, weight: float = 0.1, eps: float = 2
 
 
 def tv_chambolle_fused(x: Tensor, weight: float = 0.1, eps: float = 2.0e-4,
-                       max_iter: int = 5) -> Tensor:
+                       max_iter: int = 5, use_kernels: bool | None = None) -> Tensor:
     """Channel-wise 2-D TV prox over ``(..., H, W)``: the CUDA kernel for
     CUDA tensors, :func:`tv.tv_chambolle_multichannel` for CPU tensors. Any
     plane size runs on a kernel: planes whose strips fit in shared memory
     (up to 8 strips of 19,200 pixels, e.g. 256 x 256 and 384 x 384) on the
     cluster design, larger ones (512 x 512 and up) on the one-block-per-plane
-    design; see :func:`tv_plan`."""
-    if x.device.type == "cpu":
+    design; see :func:`tv_plan`. ``use_kernels``: see :func:`runs_kernel`."""
+    if not runs_kernel(x, use_kernels):
         return tv.tv_chambolle_multichannel(x, weight, eps, max_iter)
     _check("tv_chambolle input", x, tuple(x.shape), x.device)
     lead, hw = tuple(x.shape[:-2]), tuple(x.shape[-2:])

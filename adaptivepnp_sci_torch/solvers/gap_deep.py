@@ -54,6 +54,10 @@ class GapDeepConfig:
     lam: float = 1.0
     gamma: float = 0.01
     adapt: AdaptConfig | None = None  # the reference's 'PPP' / update branches
+    #: the x-update kernel (JAX's ``use_pallas``): None by the tensors'
+    #: device, False the plain version on any device, True the kernel (a
+    #: ValueError on CPU tensors); see ``cuda_kernels.runs_kernel``
+    use_kernels: bool | None = None
 
 
 class GapDeepResult(NamedTuple):
@@ -127,7 +131,7 @@ def gap_deep(
         trace = []
         for k in range(len(sigmas_np)):
             x = cuda_kernels.gap_x_update(theta, b, y_p, phi_p, phi_s, config.lam, config.gamma,
-                                          frames)
+                                          frames, config.use_kernels)
             x_rgb = dm(bayer.unpack(x - b))
             if adapt is not None and mask[k]:
                 adapt(net, x_rgb, sigmas[k], y_p, phi_p, y, phi, generator, opt, frames=frames)

@@ -5,7 +5,8 @@ Generalized alternating projection with a TV prior on the packed Bayer cube
 prox over all ``B*4`` planes, a clip to [0, 1] and the dual update. The
 x-update and the prox go through the kernel wrappers of
 :mod:`adaptivepnp_sci_torch.ops.cuda_kernels`: CUDA kernels for CUDA
-tensors, the plain versions for CPU tensors. With the frames spread over the
+tensors, the plain versions for CPU tensors, unless ``use_kernels`` says
+otherwise. With the frames spread over the
 ranks of a mesh's ``frame`` axis, each rank holds its frames' planes: the
 x-update runs in its split form (the frame sum's terms gathered between its
 two launches) and the TV prox on the rank's planes.
@@ -34,6 +35,10 @@ class GapTVConfig:
     gamma: float = 0.01
     tv_weight: float = 0.1
     tv_iters: int = 5
+    #: the x-update and TV kernels (JAX's ``use_pallas``): None by the
+    #: tensors' device, False the plain versions on any device, True the
+    #: kernels (a ValueError on CPU tensors); see ``cuda_kernels.runs_kernel``
+    use_kernels: bool | None = None
 
 
 class GapTVResult(NamedTuple):
@@ -58,10 +63,12 @@ def _gap_tv_packed(y: Tensor, phi: Tensor, x0: Tensor, orig: Tensor | None,
     x, theta, b = x0, x0, torch.zeros_like(x0)
     trace = []
     for _ in range(config.iters):
-        x = cuda_kernels.gap_x_update(theta, b, y, phi, phi_s, config.lam, config.gamma, frames)
+        x = cuda_kernels.gap_x_update(theta, b, y, phi, phi_s, config.lam, config.gamma, frames,
+                                      config.use_kernels)
         xb = x - b
         theta = cuda_kernels.tv_chambolle_fused(xb, weight=config.tv_weight,
-                                                max_iter=config.tv_iters)
+                                                max_iter=config.tv_iters,
+                                                use_kernels=config.use_kernels)
         theta = torch.clamp(theta, 0.0, 1.0)
         b = b - (x - theta)
         if orig is not None:

@@ -106,6 +106,11 @@ class ADMMConfig:
     #: replay the reference's iteration-1 aliasing: at k = 0 the dual update
     #: sees the pre-clip theta
     faithful_aliasing: bool = False
+    #: the x-update kernel, the TV denoiser's kernel and the guard's masked
+    #: GAP-TV (JAX's ``use_pallas``): None by the tensors' device, False the
+    #: plain versions on any device, True the kernels (a ValueError on CPU
+    #: tensors); see ``cuda_kernels.runs_kernel``
+    use_kernels: bool | None = None
 
     @property
     def rho(self) -> float:
@@ -401,7 +406,8 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         if hold_p is None:
             return resid(x0)
         x_ref, _ = _gap_tv_packed(y_p, phi_p, physics.adjoint(y_p, phi_p, fa), None,
-                                  GapTVConfig(iters=config.select_best_warm_iters), frames)
+                                  GapTVConfig(iters=config.select_best_warm_iters,
+                                              use_kernels=config.use_kernels), frames)
         return resid(x_ref)
 
     def consider(r: Tensor, theta: Tensor, xhat: Tensor | None = None) -> None:
@@ -435,10 +441,12 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         if config.select_best:
             consider(cand0_resid(x0), x0)
         for _ in range(total):
-            x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha, frames)
+            x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha, frames,
+                                           config.use_kernels)
             xb = x + b / rho
             theta = cuda_kernels.tv_chambolle_fused(xb, weight=config.tv_weight,
-                                                    max_iter=config.tv_iters)
+                                                    max_iter=config.tv_iters,
+                                                    use_kernels=config.use_kernels)
             theta = torch.clamp(theta, 0.0, 1.0)
             b = b + (x - theta)
             if config.select_best:
@@ -473,7 +481,8 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         consider(cand0_resid(x0), x0, _per_item(dm_fn, bayer.unpack(x0)))
     for k in range(total):
         sigma = sigmas[k]
-        x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha, frames)
+        x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha, frames,
+                                       config.use_kernels)
         xb_full = bayer.unpack(x + b / rho)  # (N, B, H, W)
         if dm is not None:
             dm.update(xb_full, shard)

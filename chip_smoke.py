@@ -57,6 +57,11 @@ bf16 student, ``distill_iterates`` and ``distill_fastdvd``, the first two
 also against the CPU at 64x64x8; and ``measure_tile_seams`` at 1024^2 and,
 against the CPU, at 64^2, with the seam band of the ``tiled`` snapshot
 (``seams``). ``--phases ...,seams_halo`` adds that snapshot at overlap 32.
+Then the A/B, sweep and decomposition tools (``studies``): each at 64x64x8
+with its schedule cut on the card against the CPU's plain path, with exact
+launches per tool and the same picks, FFDNet's mixed and bf16 modes among
+them, and a flagship with ``use_kernels=False`` that launches no kernel;
+``--phases ...,studies_full`` runs every tool once at its published size.
 Each phase prints one JSON line; any failure exits nonzero. The last line is
 ``{"ok": true, "device": {...}}``. It exits 1 without printing a result when
 no CUDA device is present, and fails when the package is not beside it.
@@ -79,10 +84,11 @@ PHASES = ("device", "build", "k1", "k2", "k3", "slice_parity", "flagship",
           "fastdvd_parity", "fastdvd", "ddnet_parity", "ddnet", "drivers_parity", "tiled",
           "sequence", "pipeline_parity", "cli", "train_parity", "train", "scenes_parity",
           "scenes", "models_parity", "parallel_parity", "parallel", "host", "weights", "seams",
-          "kernels")
+          "studies", "kernels")
 #: phases run only when ``--phases`` names them: the tiled phase's 2048^2
-#: snapshot again at overlap 32, for its seam band (~30 s)
-EXTRA_PHASES = ("seams_halo",)
+#: snapshot again at overlap 32, for its seam band (~30 s); every A/B, sweep
+#: and decomposition tool once at its published size (~10 min)
+EXTRA_PHASES = ("seams_halo", "studies_full")
 
 #: NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth, non-tensor fp32 rate and
 #: dense bf16 rate of the tensor cores
@@ -417,6 +423,63 @@ SEAMS_SMALL = dict(h=64, tile=32, band=8, overlaps=(0, 16))
 SEAMS_PARITY_DB = 1e-3
 #: host plumbing: ~1 GiB of .npy clips streamed through the native ring
 HOST_NPY = dict(files=64, shape=(4, 1024, 1024))
+#: the A/B, sweep and decomposition tools (``studies``): each at 64x64x8 with
+#: its schedule cut (the flagship's to (2, 1, 1), the FastDVDnet row's to
+#: (2, 1), each with a trigger at k = 2; the scene tables' stages to at most
+#: 2 iterations), one scene or style of each table, FFDNet narrowed to nc 16,
+#: nb 4 (``slice_parity``'s), a warm-up and one timed run (n = 0); the card
+#: against the CPU's plain path, launches per tool as ``studies_launches``
+#: works them out. Every solve a tool reports is held by its per-frame mean
+#: dB and by its x: float32 solves by the worst pixel (``STUDIES_F32``);
+#: solves through bf16 FFDNet or DDnet (``STUDIES_BF16``) by the rms and
+#: the worst pixel; solves through bf16 FastDVDnet (``STUDIES_BF16_LOOP``,
+#: whose cut schedule reaches sigma 6/255 at k = 2, where the loop amplifies
+#: bf16 rounding: ``FASTDVD_PARITY``) by the rms. One sum that rounds to the
+#: neighbouring bf16 value moves a pixel by a bf16 step (3.9e-3 on [0.5,
+#: 1)), and the loop carries it on, as far as the mode itself moves x: no
+#: loop-level bar in x tells bf16 from float32, and the line prints what a
+#: float32 run would read (``float32_reads``: the card's float32 row
+#: against the CPU's reduced one) beside it. What shows that the reduced
+#: modes ran is one FFDNet apply at colour width (nc 96, nb 12;
+#: ``STUDIES_APPLY``) per mode, card against CPU (the reduced modes at the
+#: CPU parity test's max and mean |dx| bars), with the types of every
+#: convolution's input on the card, and the bf16 conv pair's launches for
+#: FastDVDnet. Held-out residuals within ``STUDIES_RESID_REL`` (``_LOOP``
+#: through bf16 FastDVDnet), and a pick held to the CPU's where its two
+#: statistics differ by more than that; sigma_max and the teacher-student
+#: distance within ``STUDIES_SIGMA_REL``. Every bar is a small multiple of
+#: the largest reading on the card (2.2x to 16x; the apply's reduced modes
+#: 1.2x to 1.4x, where the float32 reading sits 1.6x above). Every tool is
+#: compared and reported before the phase
+#: fails on any of them
+STUDIES = dict(size=64, nc=16, nb=4, flag_iters=(2, 1, 1), fastdvd_iters=(2, 1), cut=2,
+               interval=2, cv_pair=(202, "textured"), select_style="smooth",
+               demosaic_scene="Jockey", relax_scene="Bosphorus", combos=("2:", "2:16"),
+               clips=32)
+#: a solve's per-frame mean dB, and the max or rms of its x. On the card
+#: (H100, 700 W) the float32 rows read <= 3.8e-6 dB (one float32 step at
+#: 30 dB) and <= 9.4e-6 in x (FastDVDnet adapting; FFDNet <= 8e-7); the
+#: bf16 FFDNet and DDnet rows <= 8.3e-5 dB, 7.5e-4 rms and 5.8e-3 max (a
+#: float32 run reads 9.5e-6 to 7.6e-4 dB, 5.3e-4 to 8.4e-4 rms and 4.2e-3
+#: to 7.6e-3 max there); the bf16 FastDVDnet loops <= 7.1e-3 dB and 5.7e-3
+#: rms (a float32 run: 0.42 dB, 5.4e-3 rms)
+STUDIES_F32 = {"db": 2e-5, "max": 3e-5}
+STUDIES_BF16 = {"db": 3e-4, "rms": 2e-3, "max": 1.5e-2}
+STUDIES_BF16_LOOP = {"db": 3e-2, "rms": 1.5e-2}
+#: FFDNet-color, one apply of 1x64x64x3 at sigma 25/255 per mode: max, mean
+#: |dx| (the card read 6.3e-8 / 1.1e-8, 2.2e-4 / 3.6e-5 mixed and 2.6e-4 /
+#: 4.1e-5 bf16; its float32 apply against the CPU's mixed and bf16 ones
+#: 3.7e-4 / 6.4e-5 and 3.3e-4 / 6.9e-5)
+STUDIES_APPLY = {"fp32": (1e-6, 1e-7), "mixed": (3e-4, 5e-5), "bf16": (3e-4, 5e-5)}
+#: relative; read 1.5e-4 (DDnet probe), 1.35e-2 through bf16 FastDVDnet, and
+#: 7.5e-8 for sigma_max
+STUDIES_RESID_REL = 1e-3
+STUDIES_RESID_REL_LOOP = 3e-2
+STUDIES_SIGMA_REL = 1e-6
+#: ``bench_2048_adaptive``'s combinations in ``studies_full``: its two
+#: defaults and all 16 tiles at once, which the JAX docstring reports out of
+#: memory on the TPU
+STUDIES_FULL_COMBOS = ("4:", "4:256", "16:")
 
 
 def scenes_launches(name: str, mode: str, n_meas: int, lowp: bool) -> dict:
@@ -435,6 +498,70 @@ def scenes_launches(name: str, mode: str, n_meas: int, lowp: bool) -> dict:
     pairs = 8 * iters if lowp and denoiser == "fastdvd" else 0
     return {"x_update": n_meas * (iters + guard), "tv_chambolle": n_meas * guard,
             "convpair": n_meas * pairs}
+
+
+def studies_launches(tool: str) -> dict:
+    """K1/K2/K3 launches of one tool of the ``studies`` phase on the card,
+    worked out from its runs: every timed row is two runs (the warm-up and
+    the final one, n = 0); a 40-iteration GAP-TV warm start is 40 + 40; a
+    solve of T iterations T x-updates, and with the held-out guard its
+    masked GAP-TV 40 + 40; bf16 FastDVDnet 8 conv pairs an iteration (the
+    trigger's forward needs a gradient and runs the plain pair); float32
+    FastDVDnet, FFDNet and DDnet none; ``use_kernels=False`` arms none."""
+    from adaptivepnp_sci_torch import bench_2048_adaptive
+    from adaptivepnp_sci_torch.configs.scenes import (
+        FASTDVD_SCENES,
+        FFDNET_SCENES,
+        admm_config_for,
+    )
+
+    def cut(iters):
+        return sum(min(n, STUDIES["cut"]) for n in iters)
+
+    def add(*runs):
+        return {k: sum(r[k] for r in runs) for k in _K}
+
+    tf, td, w = sum(STUDIES["flag_iters"]), sum(STUDIES["fastdvd_iters"]), 40
+    warm = _launches(w, w)
+    flag_run = _launches(w + tf, w)
+
+    def fd_solve(it, guard=False, pairs=True):
+        return _launches(it + w * guard, w * guard, 8 * it * pairs)
+
+    if tool == "ab_ffdnet_precision":
+        return add(*[flag_run] * 6)
+    if tool == "ab_kernels_adapt":
+        return add(warm, warm, *[flag_run] * 8, *[_launches(w + td, w)] * 4)
+    if tool == "decompose_flagship_floor":
+        return add(*[flag_run] * 3)
+    if tool == "decompose_fastdvd_floor":
+        return add(_launches(convpair=8 * td), _launches(w + td, w), _launches(w + td, w, 8 * td))
+    if tool == "bench_fastdvd_bf16":
+        return add(*[_launches(w + td, w)] * 2, *[_launches(w + td, w, 8 * td)] * 2)
+    if tool == "ab_ddnet_precision":
+        return add(*[flag_run] * 8)
+    if tool == "ab_cv_guard":
+        return add(warm, fd_solve(td), fd_solve(td), fd_solve(td, guard=True))
+    if tool == "ab_weight_select":
+        t = cut(FASTDVD_SCENES["Beauty"][False].iters)
+        return add(warm, *[fd_solve(t)] * 4)
+    if tool == "ab_demosaic_select":
+        rows = FFDNET_SCENES[STUDIES["demosaic_scene"]]
+        return add(warm, *[_launches(cut(rows[False].iters) + cut(rows[True].iters))] * 2)
+    if tool == "sweep_fastdvd_relax":
+        t = cut(admm_config_for(STUDIES["relax_scene"], "fastdvd").iters)
+        return add(warm, *[fd_solve(t)] * 4, fd_solve(t, guard=True))
+    if tool == "sweep_fidelity":
+        return _launches(w + td, w, 8 * td)
+    if tool == "bench_2048_adaptive":
+        tile = min(bench_2048_adaptive.TILE, STUDIES["size"] // 2)
+        groups = (STUDIES["size"] // tile) ** 2 // 2
+        return add(warm, *[_launches(groups * tf)] * (2 * len(STUDIES["combos"])))
+    if tool == "diag_teacher_sigma":
+        return _launches()
+    if tool == "eval_teacher_inloop":
+        return add(warm, _launches(td))
+    raise KeyError(tool)
 
 
 class SmokeFailure(RuntimeError):
@@ -630,7 +757,7 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     needed = {"k1", "k2", "k3", "flagship", "fastdvd", "ddnet", "tiled", "sequence", "cli",
-              "train", "scenes", "parallel", "weights", "seams"}
+              "train", "scenes", "parallel", "weights", "seams", "studies"}
     if "kernels" in phases and not needed <= phases:
         ap.error(f"the kernels phase needs the {', '.join(sorted(needed))} phases")
     if "seams" in phases and "tiled" not in phases:
@@ -2839,6 +2966,360 @@ def main(argv: list[str]) -> int:
         report.pop("tiled_run", None)
         tool_dir.cleanup()
 
+    # ------------------------------------------------------------- studies
+    if phases & {"studies", "studies_full"}:
+        import contextlib
+        import dataclasses
+        import io
+
+        from adaptivepnp_sci_torch import (
+            ab_cv_guard,
+            ab_ddnet_precision,
+            ab_demosaic_select,
+            ab_ffdnet_precision,
+            ab_kernels_adapt,
+            ab_weight_select,
+            bench_2048_adaptive,
+            bench_fastdvd_bf16,
+            decompose_fastdvd_floor,
+            decompose_flagship_floor,
+            diag_teacher_sigma,
+            eval_teacher_inloop,
+            studies,
+            sweep_fastdvd_relax,
+            sweep_fidelity,
+        )
+
+        def quiet(run):
+            """``run()``'s result and what it printed."""
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                out = run()
+            return out, text.getvalue()
+
+    if "studies" in phases:
+        st = STUDIES
+        size, narrow = st["size"], dict(nc=st["nc"], nb=st["nb"])
+        small = ffdnet_from_flax(flax_style_ffdnet_params(st["nc"], st["nb"], seed=0))
+        flag = studies.flagship_config(iters=st["flag_iters"], adapt=dataclasses.replace(
+            studies.FLAGSHIP_ADAPT, interval_iter=st["interval"]))
+        fixed = studies.flagship_config(adapt=None, iters=st["flag_iters"])
+        fd = studies.fastdvd_config(iters=st["fastdvd_iters"], adapt=dataclasses.replace(
+            studies.FASTDVD_ADAPT, interval_iter=st["interval"]))
+        fd_fixed = studies.fastdvd_config(adapt=None, iters=st["fastdvd_iters"])
+        sc = make_scene(b=8, h=size, w=size, seed=42)
+
+        # tool -> device -> (numbers compared, their bars, the picks, arrays)
+        tools = {
+            "ab_ffdnet_precision": lambda d: {
+                mode: ab_ffdnet_precision.precision_row(
+                    sc, FFDNet(**narrow, **kw), small, flag, d, n=0)[1]
+                for mode, kw in ab_ffdnet_precision.MODES.items()},
+            "ab_kernels_adapt": lambda d: ab_kernels_adapt.main(
+                small, None, size, d, FFDNet(**narrow), fixed, flag, fd, n=0),
+            "decompose_flagship_floor": lambda d: decompose_flagship_floor.main(
+                small, size, d, FFDNet(**narrow), fixed, flag, n=0),
+            "decompose_fastdvd_floor": lambda d: decompose_fastdvd_floor.main(
+                size, d, fd_fixed, n=0),
+            "bench_fastdvd_bf16": lambda d: bench_fastdvd_bf16.main(size, d, fd, n=0),
+            "ab_ddnet_precision": lambda d: ab_ddnet_precision.main(
+                small, size, d, FFDNet(**narrow), studies.flagship_config(
+                    adapt=None, iters=st["flag_iters"], demosaic_method="ddnet"), n=0),
+            "ab_cv_guard": lambda d: ab_cv_guard.guard_row(
+                make_scene(b=8, h=size, w=size, seed=st["cv_pair"][0], style=st["cv_pair"][1]),
+                fastdvd_prior(FastDVDnet(dtype=torch.bfloat16, remat=False)),
+                fastdvdnet_from_flax(load_variables_npz(str(ROOT / "weights" / "fastdvd.npz"))),
+                fd, d),
+            "ab_weight_select": lambda d: ab_weight_select.main(
+                size, d, st["cut"], styles=(st["select_style"],)),
+            "ab_demosaic_select": lambda d: ab_demosaic_select.main(
+                small, size, d, FFDNet(**narrow), st["cut"], scenes=(st["demosaic_scene"],)),
+            "sweep_fastdvd_relax": lambda d: sweep_fastdvd_relax.main(
+                [st["relax_scene"]], size, d, st["cut"]),
+            "sweep_fidelity": lambda d: sweep_fidelity.main(
+                size=size, device=d, iters=st["fastdvd_iters"]),
+            "bench_2048_adaptive": lambda d: bench_2048_adaptive.main(
+                small, st["combos"], size, d, FFDNet(**narrow), flag),
+            "diag_teacher_sigma": lambda d: diag_teacher_sigma.main(
+                small, None, d, diag_teacher_sigma.FrameWise(**narrow), size=st["clips"]),
+            "eval_teacher_inloop": lambda d: eval_teacher_inloop.main(
+                small, size, ("smooth",), d, FFDNet(**narrow), fd),
+        }
+        f32, bf16, loop = STUDIES_F32, STUDIES_BF16, STUDIES_BF16_LOOP
+
+        def db_of(res):
+            """A result's mean per-frame PSNR (the solvers' or the pipelines')."""
+            p = res.psnr_per_frame if hasattr(res, "psnr_per_frame") else res.psnr
+            return float(torch.as_tensor(p).float().mean())
+
+        def x_stats(a, b):
+            """``(max, rms)`` of the difference of two arrays."""
+            d = torch.as_tensor(a).double().cpu() - torch.as_tensor(b).double().cpu()
+            return float(d.abs().max()), float(d.pow(2).mean().sqrt())
+
+        def compare(tool, g, c):
+            """``(gaps, bars, picks agree, x stats, float32 reads)`` of the
+            card's result ``g`` against the CPU's ``c``: each gap in dB, in
+            x or relative against its bar, named; every solve's ``(max,
+            rms)`` of x; what the card's float32 rows read against the
+            CPU's reduced ones."""
+            gaps, bars, same, stats, reads = {}, {}, True, {}, {}
+
+            def db(name, a, b, bar):
+                gaps[name], bars[name] = abs(a - b), bar["db"]
+
+            def arr(name, a, b, bar):
+                # two arrays, by the bar's measure of their difference
+                stats[name] = x_stats(a, b)
+                for i, k in enumerate(("max", "rms")):
+                    if k in bar:
+                        gaps[f"{name}_{k}"], bars[f"{name}_{k}"] = stats[name][i], bar[k]
+
+            def solve(name, a, b, bar):
+                # a solve's result: its dB and its x
+                db(f"{name}_db", db_of(a), db_of(b), bar)
+                arr(name, a.x_bayer, b.x_bayer, bar)
+
+            def read(name, a32, b):
+                reads[name] = {"db": abs(db_of(a32) - db_of(b)),
+                               **dict(zip(("max", "rms"), x_stats(a32.x_bayer, b.x_bayer)))}
+
+            def rel(name, a, b, bar):
+                gaps[name], bars[name] = abs(a - b) / max(abs(b), 1e-30), bar
+
+            def pick(name, a, b, stats, margin, largest=False):
+                # a pick (the least statistic, or the largest) is held where
+                # the two best differ by more than their bar (``margin``, in
+                # the statistics' unit)
+                nonlocal same
+                best = sorted(stats, reverse=largest)[:2]
+                if abs(best[1] - best[0]) > margin:
+                    same &= a == b
+                gaps[f"{name}_same"] = a == b
+
+            def resid_margin(stats, bar):
+                return bar * max(abs(v) for v in stats)
+
+            if tool == "ab_ffdnet_precision":
+                for mode in g:
+                    solve(mode, g[mode], c[mode], f32 if mode == "fp32" else bf16)
+                    if mode != "fp32":
+                        read(mode, g["fp32"], c[mode])
+            elif tool == "ab_kernels_adapt":
+                cpu = {(r[0], r[1]): r for r in c}
+                for r in g:
+                    ref = cpu[(r[0], "plain" if r[1] == "kernels" else r[1])]
+                    solve(f"{r[0]}/{r[1]}", r[5], ref[5], f32)
+            elif tool == "decompose_flagship_floor":
+                for k in "ABCD":
+                    arr(k, g[f"{k}_out"], c[f"{k}_out"], f32)
+            elif tool == "decompose_fastdvd_floor":
+                # A: the bf16 denoiser alone over the schedule, no loop
+                arr("A", g["A_out"], c["A_out"], bf16)
+                arr("B", g["B_out"], c["B_out"], f32)
+                arr("C", g["C_out"], c["C_out"], loop)
+            elif tool == "bench_fastdvd_bf16":
+                for a, b in zip(g, c):
+                    solve(a[0], a[4], b[4], f32 if a[0] == "fp32" else loop)
+                read("bf16+fp32res", g[0][4], c[1][4])
+            elif tool == "ab_ddnet_precision":
+                for a, b in zip(g, c):
+                    solve(f"{a[0]}/{a[1]}", a[5], b[5], f32 if a[1] == "fp32" else bf16)
+                for a, b in zip(g[0::2], c[1::2]):
+                    read(f"{b[0]}/{b[1]}", a[5], b[5])
+            elif tool == "ab_cv_guard":
+                db("warm", g[0], c[0], f32)
+                for a, b in zip(g[1], c[1]):
+                    solve(a[0].strip(), a[3], b[3], loop)
+                    if b[3].resid_trace is not None:
+                        r = list(b[3].resid_trace.cpu().numpy())
+                        pick(a[0].strip(), int(a[3].resid_trace.cpu().argmin()),
+                             int(np.argmin(r)), r, resid_margin(r, STUDIES_RESID_REL_LOOP))
+            elif tool == "ab_weight_select":
+                for a, b in zip(g, c):
+                    for i, k in enumerate(ab_weight_select.WEIGHTS):
+                        rel(f"resid_{k}", a[2][i], b[2][i], STUDIES_RESID_REL_LOOP)
+                        solve(k, a[7][i], b[7][i], loop)
+                    pick("pick", a[3], b[3], b[2], resid_margin(b[2], STUDIES_RESID_REL_LOOP))
+                    pick("oracle", a[5], b[5], b[4], loop["db"], largest=True)
+            elif tool == "ab_demosaic_select":
+                for a, b in zip(g, c):
+                    rel("resid_malvar", a[2], b[2], STUDIES_RESID_REL)
+                    rel("resid_ddnet", a[3], b[3], STUDIES_RESID_REL)
+                    solve("malvar", a[9][0], b[9][0], f32)
+                    solve("ddnet", a[9][1], b[9][1], bf16)
+                    pick("pick", a[4], b[4], (b[2], b[3]),
+                         resid_margin((b[2], b[3]), STUDIES_RESID_REL))
+                    pick("oracle", a[7], b[7], (b[5], b[6]), bf16["db"], largest=True)
+            elif tool == "sweep_fastdvd_relax":
+                for a, b in zip(g, c):
+                    db("warm", a[2], b[2], f32)
+                    for r, ra, rb in zip(a[3], a[6], b[6]):
+                        solve(f"r={r}", ra, rb, loop)
+                    pick("best_r", a[4], b[4], list(b[3].values()), loop["db"], largest=True)
+                    solve("guarded", a[6][-1], b[6][-1], loop)
+            elif tool == "sweep_fidelity":
+                for a, b in zip(g, c):
+                    solve(a[0], a[3], b[3], loop)
+            elif tool == "bench_2048_adaptive":
+                for a, b in zip(g, c):
+                    solve(f"{a[0]}:{a[1]}", a[5], b[5], f32)
+            elif tool == "diag_teacher_sigma":
+                rel("teacher_sigma_max", g[0], c[0], STUDIES_SIGMA_REL)
+                for a, b in zip(g[1], c[1]):
+                    rel("student_sigma_max", a[1], b[1], STUDIES_SIGMA_REL)
+                    rel("student_rms", a[2], b[2], STUDIES_SIGMA_REL)
+            elif tool == "eval_teacher_inloop":
+                for a, b in zip(g, c):
+                    db(f"{a[0]}_warm", a[1], b[1], f32)
+                    solve(a[0], a[3], b[3], f32)
+            return gaps, bars, same, stats, reads
+
+        studies_counts = {k: 0 for k in _K}
+        studies_shapes: dict = {}
+        failed: list[str] = []
+        t_phase = time.perf_counter()
+        for tool, run in tools.items():
+            torch.cuda.synchronize()
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            g, _ = quiet(lambda: run("cuda"))
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            counts = dict(cuda_kernels.launches)
+            for shp, k in cuda_kernels.convpair_launches.items():
+                studies_shapes[shp] = studies_shapes.get(shp, 0) + k
+            t0 = time.perf_counter()
+            c, _ = quiet(lambda: run("cpu"))
+            cpu_s = time.perf_counter() - t0
+            gaps, bars, same, stats, reads = compare(tool, g, c)
+            want = studies_launches(tool)
+            emit("studies", tool=tool, shape=[8, size, size], launches=counts,
+                 launches_predicted=want, gaps=gaps, bars=bars, same_picks=same,
+                 x_max_rms=stats, float32_reads=reads, card_s=card_s, cpu_s=cpu_s, **card)
+            if counts != want:
+                failed.append(f"studies {tool}: launches {counts}, predicted {want}")
+            if not (all(gaps[k] <= v for k, v in bars.items()) and same):
+                failed.append(f"studies {tool}: card against the CPU {gaps}, bars {bars}")
+            for k in _K:
+                studies_counts[k] += counts[k]
+        # the flagship with use_kernels=False on the card: no K1 or K2 launch,
+        # the CPU plain path's result within the float32 bar
+        plain = (dataclasses.replace(studies.WARM, use_kernels=False),
+                 dataclasses.replace(flag, use_kernels=False))
+        cuda_kernels.reset_launches()
+        g = reconstruct_single_dispatch(sc.meas, sc.mask, *plain, ffdnet_prior(FFDNet(**narrow)),
+                                        small, orig=sc.orig_bayer, device="cuda")
+        torch.cuda.synchronize()
+        counts = dict(cuda_kernels.launches)
+        c = reconstruct_single_dispatch(sc.meas, sc.mask, *plain, ffdnet_prior(FFDNet(**narrow)),
+                                        small, orig=sc.orig_bayer, device="cpu")
+        gaps = {"db": float((g.psnr_per_frame.cpu() - c.psnr_per_frame).abs().max()),
+                "max": float((g.x_bayer.cpu() - c.x_bayer).abs().max())}
+        emit("studies", tool="use_kernels=False flagship", shape=[8, size, size],
+             launches=counts, gaps=gaps, bars=f32, **card)
+        if counts != _launches():
+            failed.append(f"studies use_kernels=False: launches {counts}")
+        if not all(gaps[k] <= f32[k] for k in f32):
+            failed.append(f"studies use_kernels=False: {gaps} against the CPU")
+        # FFDNet-color, one apply per mode: the card against the CPU, the
+        # type of each convolution's input on the card, and what the card's
+        # float32 apply reads against the CPU's reduced one
+        from torch.overrides import TorchFunctionMode
+
+        from adaptivepnp_sci_torch.solvers.two_stage_admm import full_f32
+
+        class ConvInputTypes(TorchFunctionMode):
+            def __init__(self):
+                super().__init__()
+                self.seen = []
+
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                if func is torch.nn.functional.conv2d:
+                    self.seen.append(str(args[0].dtype).removeprefix("torch."))
+                return func(*args, **(kwargs or {}))
+
+        color = ffdnet_from_flax(flax_style_ffdnet_params(96, 12, seed=0))
+        xin = torch.rand((1, size, size, 3), generator=torch.Generator().manual_seed(0))
+        applied = {}
+        for mode, kw in ab_ffdnet_precision.MODES.items():
+            for d in ("cuda", "cpu"):
+                net = FFDNet(**kw).to(d)
+                net.load_state_dict(color)
+                with full_f32(), torch.no_grad(), ConvInputTypes() as seen:
+                    out = net(xin.to(d), torch.tensor(25 / 255, device=d))
+                applied[mode, d] = out.double().cpu(), seen.seen
+        interior = {"fp32": "float32", "mixed": "bfloat16", "bf16": "bfloat16"}
+        for mode in ab_ffdnet_precision.MODES:
+            ends = "float32" if mode == "mixed" else interior[mode]
+            want = [ends] + [interior[mode]] * 10 + [ends]
+            (out, types), cpu_out = applied[mode, "cuda"], applied[mode, "cpu"][0]
+            d = (out - cpu_out).abs()
+            gaps = {"max": float(d.max()), "mean": float(d.mean())}
+            d32 = (applied["fp32", "cuda"][0] - cpu_out).abs()
+            reads = {"max": float(d32.max()), "mean": float(d32.mean())}
+            bar = dict(zip(("max", "mean"), STUDIES_APPLY[mode]))
+            emit("studies", tool="FFDNet-color apply", mode=mode, shape=[1, size, size, 3],
+                 gaps=gaps, bars=bar, conv_input_types=types, float32_reads=reads, **card)
+            if not all(gaps[k] <= bar[k] for k in bar):
+                failed.append(f"studies FFDNet-color {mode} apply: {gaps}, bars {bar}")
+            if types != want:
+                failed.append(f"studies FFDNet-color {mode} apply: conv inputs {types}")
+            if mode != "fp32" and reads["mean"] <= bar["mean"]:
+                failed.append(f"studies FFDNet-color {mode} apply: float32 reads {reads}, "
+                              f"within the bars {bar}")
+        require(not failed, "; ".join(failed))
+        report["launches_studies"] = studies_counts
+        report["launches_convpair_studies"] = studies_shapes
+        emit("studies_total", seconds=time.perf_counter() - t_phase, launches=studies_counts,
+             **card)
+
+    # -------------------------------------------------------- studies_full
+    if "studies_full" in phases:
+        # every tool once at its published size, FFDNet-color with this
+        # script's Flax-scheme weights (their dB mean nothing)
+        from adaptivepnp_sci_torch.run_all_scenes import SCENE_STANDINS
+
+        color = ffdnet_from_flax(flax_style_ffdnet_params(96, 12, seed=0))
+        full = {
+            "ab_ffdnet_precision": lambda: ab_ffdnet_precision.main(color),
+            "ab_kernels_adapt": lambda: ab_kernels_adapt.main(color),
+            "decompose_flagship_floor": lambda: decompose_flagship_floor.main(color),
+            "decompose_fastdvd_floor": lambda: decompose_fastdvd_floor.main(),
+            "bench_fastdvd_bf16": lambda: bench_fastdvd_bf16.main(),
+            "ab_ddnet_precision": lambda: ab_ddnet_precision.main(color),
+            "ab_cv_guard": lambda: ab_cv_guard.main(),
+            "ab_weight_select": lambda: ab_weight_select.main(),
+            "ab_demosaic_select": lambda: ab_demosaic_select.main(color),
+            "sweep_fastdvd_relax": lambda: sweep_fastdvd_relax.main(list(SCENE_STANDINS)),
+            "sweep_fidelity": lambda: sweep_fidelity.main(),
+            "bench_2048_adaptive": lambda: bench_2048_adaptive.main(color, STUDIES_FULL_COMBOS),
+            "diag_teacher_sigma": lambda: diag_teacher_sigma.main(color),
+            "eval_teacher_inloop": lambda: eval_teacher_inloop.main(color),
+        }
+
+        def numbers(v):
+            """A tool's rows without their solver results and output arrays."""
+            if hasattr(v, "x_bayer"):
+                return None
+            if isinstance(v, dict):
+                return {k: numbers(u) for k, u in v.items() if not str(k).endswith("_out")}
+            if isinstance(v, (list, tuple)):
+                return [numbers(u) for u in v]
+            return v
+
+        for tool, run in full.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            out, text = quiet(run)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            emit("studies_full", tool=tool, seconds=secs, launches=dict(cuda_kernels.launches),
+                 peak_mem_bytes=torch.cuda.max_memory_allocated(), table=text.splitlines(),
+                 result=json.loads(json.dumps(numbers(out), default=str)), **card)
+            torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- kernels
     if "kernels" in phases:
         # launches on the main paths: the flagship's for its two kernels, the
@@ -2853,6 +3334,7 @@ def main(argv: list[str]) -> int:
         launches_scenes = dict(report["launches_scenes"])
         launches_parallel = [dict(r) for r in report["launches_parallel_tiled"]]
         tools = {k: report[f"launches_{k}"] for k in ("eval_weights", "harvest", "seams")}
+        launches_studies = dict(report["launches_studies"])
         for name, shape in CONVPAIR_MAIN_SHAPES.items():
             launches_scenes[f"convpair_{name}"] = report["launches_convpair_scenes"].get(shape, 0)
             launches_cli[f"convpair_{name}"] = report["launches_convpair_cli"].get(shape, 0)
@@ -2861,6 +3343,10 @@ def main(argv: list[str]) -> int:
             launches_ddnet[f"convpair_{name}"] = report["launches_convpair_ddnet"][shape]
             launches_tiled[f"convpair_{name}"] = report["launches_convpair_tiled"][shape]
             launches_sequence[f"convpair_{name}"] = 0
+            # the studies run at 64^2: the pair of the same C at that size
+            c, h, w = shape
+            launches_studies[f"convpair_{name}"] = report["launches_convpair_studies"].get(
+                (c, h * STUDIES["size"] // 512, w * STUDIES["size"] // 512), 0)
         pallas = {"x_update": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:58",
                   "tv_chambolle": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:93",
                   "convpair": "scripts/ab_pallas_convpair.py:47"}
@@ -2881,6 +3367,7 @@ def main(argv: list[str]) -> int:
                          "launches_cli": launches_cli[name],
                          "launches_train": launches_train[name],
                          "launches_scenes": launches_scenes[name],
+                         "launches_studies": launches_studies[name],
                          "launches_parallel_tiled_per_rank": [p[name] for p in launches_parallel],
                          **{f"launches_{k}": v[name] for k, v in tools.items()},
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2898,6 +3385,8 @@ def main(argv: list[str]) -> int:
                 f"the sequence, eval_weights or seam path missed a kernel: {rows}")
         require(all(r["launches_harvest"] > 0 for r in rows),
                 f"harvest_iterates missed a kernel: {rows}")
+        require(all(r["launches_studies"] > 0 for r in rows),
+                f"the A/B, sweep and decomposition tools missed a kernel: {rows}")
         # the frame-sharded snapshots: the split x-update (the fused form runs
         # on none of them), the TV and conv-pair kernels on each rank's frames
         frame = report["launches_parallel_frame"]

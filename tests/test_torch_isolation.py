@@ -173,6 +173,19 @@ with tempfile.TemporaryDirectory() as d:
 assert regenerate_weights.schedule(64, 6) == (2, (2, 2))
 assert len(measure_tile_seams.seam_psnrs(sc.orig_bayer, sc.orig_bayer * 0.9, 8, 2)) == 3
 assert callable(harvest_iterates.run_loop_and_harvest) and callable(distill_iterates.make_pool)
+# the A/B, sweep and decomposition tools: every module, one table at 16x16
+from adaptivepnp_sci_torch import (ab_cv_guard, ab_ddnet_precision, ab_demosaic_select,
+                                   ab_ffdnet_precision, ab_kernels_adapt, ab_weight_select,
+                                   bench_2048_adaptive, bench_fastdvd_bf16,
+                                   decompose_fastdvd_floor, decompose_flagship_floor,
+                                   diag_teacher_sigma, eval_teacher_inloop, studies,
+                                   sweep_fastdvd_relax, sweep_fidelity)
+small = ffdnet_from_flax(multihost_validation.flax_style_ffdnet_params(8, 3, seed=0))
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    rows = ab_ffdnet_precision.main(small, 16, "cpu", studies.flagship_config(iters=(2, 1, 1)),
+                                    lambda **kw: FFDNet(nc=8, nb=3, **kw), n=0)
+assert [r[0] for r in rows] == ["fp32", "mixed", "bf16"] and "| mode |" in out.getvalue()
+assert callable(ab_kernels_adapt.admm_row) and callable(decompose_fastdvd_floor.main)
 try:
     ab_convpair.main(32, 16, 1)
 except RuntimeError as err:

@@ -263,7 +263,9 @@ def test_scene_tables_match_jax(name, denoiser, deep):
     assert dataclasses.asdict(ttable[name][deep]) == dataclasses.asdict(table[name][deep])
     want, got = scenes.admm_config_for(name, denoiser, deep), tscenes.admm_config_for(name, denoiser, deep)
     for f in dataclasses.fields(got):
-        mine, theirs = getattr(got, f.name), getattr(want, f.name)
+        # the kernel switch is JAX's use_pallas under the port's name
+        mine = getattr(got, f.name)
+        theirs = getattr(want, "use_pallas" if f.name == "use_kernels" else f.name)
         if f.name == "adapt":
             assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
         else:
