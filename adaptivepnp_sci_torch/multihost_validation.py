@@ -813,9 +813,8 @@ def case_train_full(meshes, dev, sz):
 #: 4), one trigger at k = 15 (2 Adam steps at lr 2e-6)
 FLAGSHIP_SCHEDULE = dict(sigma=(25 / 255, 12 / 255, 6 / 255), iters=(15, 6, 4))
 FLAGSHIP_ADAPT = dict(lr=2e-6, update_per_iter=2, interval_iter=15, initial_iter=1)
-#: the frame-sharded snapshots' timed runs, after one profiled warm-up (the
-#: float32 FastDVDnet row, 7 s a snapshot in one process: one)
-FRAME_FULL_RUNS = {"frame_flagship_full": 3, "frame_fastdvd_full": 3,
+#: the frame-sharded snapshots' timed runs, after one profiled warm-up
+FRAME_FULL_RUNS = {"frame_flagship_full": 1, "frame_fastdvd_full": 1,
                    "frame_fastdvd_fixed_full": 1, "frame_fastdvd_fp32_full": 1}
 
 
@@ -954,21 +953,27 @@ def collective_profile(prof, prefix: str = "") -> dict[str, np.ndarray]:
     """The collectives in a ``torch.profiler`` run: the count and the host
     milliseconds of the backend's events (``gloo:*`` run the whole
     collective on gloo's thread, waits included; ``nccl:*`` only enqueue
-    it), and the device milliseconds of NCCL's kernels."""
-    host_ms, count, dev_ms, by_key = 0.0, 0, 0.0, []
-    for e in prof.key_averages():
-        # a gloo collective of CUDA tensors also leaves an event of no
-        # duration beside the one that runs it: count the timed ones
-        if e.key.startswith(("gloo:", "nccl:")) and e.cpu_time_total > 0:
-            host_ms += e.cpu_time_total / 1e3
-            count += e.count
-            by_key.append(f"{e.key} x{e.count} {e.cpu_time_total / 1e3:.3f} ms")
-        elif "nccl" in e.key.lower() and "kernel" in e.key.lower():
-            dev_ms += (getattr(e, "self_device_time_total", 0)
-                       or getattr(e, "self_cuda_time_total", 0)) / 1e3
-    return {f"{prefix}collectives_ms": np.array(host_ms),
-            f"{prefix}collectives_count": np.array(count),
-            f"{prefix}collectives_by_key": np.array(by_key, dtype=str),
+    it), and the device milliseconds of NCCL's kernels. Read from the
+    profiler's raw events, by name, as ``key_averages`` sums them, without
+    building its event tree (a FastDVDnet snapshot leaves ~150,000 events,
+    and the tree takes seconds to build on the host)."""
+    from torch.autograd import DeviceType
+
+    host: dict[str, list[float]] = {}
+    dev_ms = 0.0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        # a gloo collective of CUDA tensors also leaves a device-side event
+        # of its name (its copies): the host events are the collectives
+        if name.startswith(("gloo:", "nccl:")) and e.device_type() == DeviceType.CPU:
+            host.setdefault(name, []).append(e.duration_ns() / 1e6)
+        elif "nccl" in name.lower() and "kernel" in name.lower():
+            dev_ms += e.duration_ns() / 1e6
+    timed = {k: v for k, v in host.items() if sum(v) > 0}
+    return {f"{prefix}collectives_ms": np.array(sum(map(sum, timed.values()))),
+            f"{prefix}collectives_count": np.array(sum(map(len, timed.values()))),
+            f"{prefix}collectives_by_key": np.array(
+                [f"{k} x{len(v)} {sum(v):.3f} ms" for k, v in timed.items()], dtype=str),
             f"{prefix}nccl_device_ms": np.array(dev_ms)}
 
 

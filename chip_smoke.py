@@ -36,8 +36,9 @@ published width (batch 16, 96x96 patches), ``denoise`` with the trained
 FastDVDnet, and a 512x512x8 reconstruction in bf16 from the trained
 checkpoint (``train``). Then the six-scene reproduction run
 (``run_all_scenes.main``): the card against the CPU on the photograph scenes
-at 64x64x8 (``scenes_parity``), every scene in every mode at 512x512x8 with
-each row's launches against its table row (``scenes``); and the block zoo,
+at 64x64x8 (``scenes_parity``), one scene in each mode at 512x512x8 with
+each row's launches against its table row (``scenes``; ``--phases
+...,scenes_full`` runs every scene); and the block zoo,
 FFDNet-IPOL, ``SpatialDnCNN``, ``PyramidEncoder``, the VGG19 features and
 ``imresize`` on the card against the CPU (``models_parity``). Then the
 parallel paths of ``adaptivepnp_sci_torch.multihost_validation`` (the ring
@@ -62,7 +63,17 @@ with its schedule cut on the card against the CPU's plain path, with exact
 launches per tool and the same picks, FFDNet's mixed and bf16 modes among
 them, and a flagship with ``use_kernels=False`` that launches no kernel;
 ``--phases ...,studies_full`` runs every tool once at its published size.
-Each phase prints one JSON line; any failure exits nonzero. The last line is
+Then the timing drivers: ``bench.main`` (the port of ``bench.py``) in its
+three modes at 512x512x8 with ``bench.py``'s FFDNet variables, timed, and at
+128x128x8 against the JAX package's readings of the same calls on the CPU
+(``bench``); every row of the benchmark suite and the batched sweep at 1 and
+2 measurements at 64x64x8 with cut schedules, card against CPU with exact
+launches, and the suite's flagship row against ``bench``'s (``suite``);
+``--phases ...,suite_full`` runs the suite and the sweep at their published
+sizes. ``--phases ...,profiles`` adds the ``torch.profiler`` traces of the
+FastDVDnet, deep-demosaicking and training paths (the flagship's is always
+taken). Each phase prints one JSON line (``t_s``: seconds since the start);
+any failure exits nonzero. The last line is
 ``{"ok": true, "device": {...}}``. It exits 1 without printing a result when
 no CUDA device is present, and fails when the package is not beside it.
 """
@@ -70,6 +81,8 @@ no CUDA device is present, and fails when the package is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -84,11 +97,18 @@ PHASES = ("device", "build", "k1", "k2", "k3", "slice_parity", "flagship",
           "fastdvd_parity", "fastdvd", "ddnet_parity", "ddnet", "drivers_parity", "tiled",
           "sequence", "pipeline_parity", "cli", "train_parity", "train", "scenes_parity",
           "scenes", "models_parity", "parallel_parity", "parallel", "host", "weights", "seams",
-          "studies", "kernels")
+          "studies", "bench", "suite", "kernels")
 #: phases run only when ``--phases`` names them: the tiled phase's 2048^2
 #: snapshot again at overlap 32, for its seam band (~30 s); every A/B, sweep
-#: and decomposition tool once at its published size (~10 min)
-EXTRA_PHASES = ("seams_halo", "studies_full")
+#: and decomposition tool once at its published size (~10 min); all 24 rows
+#: of the six-scene run at 512x512x8 (~55 s); the benchmark suite and the
+#: batched sweep at their published sizes; and, named beside the fastdvd,
+#: ddnet and train phases, their ``torch.profiler`` traces (device busy and
+#: idle share; ~45 s) and the float32 FastDVDnet breakdown without
+#: recomputation
+EXTRA_PHASES = ("seams_halo", "studies_full", "scenes_full", "suite_full", "profiles")
+#: the script's start, on the host clock (each JSON line's ``t_s``)
+T0 = time.perf_counter()
 
 #: NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth, non-tensor fp32 rate and
 #: dense bf16 rate of the tensor cores
@@ -116,6 +136,11 @@ FASTDVD_LAUNCHES = {
     "fp32": {"x_update": 76, "tv_chambolle": 40, "convpair": 0},
     "bf16": {"x_update": 76, "tv_chambolle": 40, "convpair": 288},
 }
+#: the fastdvd phase's runs per scene and mode, the first a warm-up unless
+#: it is the only one (the float32 row takes 7.3 s a run; the smooth scene's
+#: runs warm the leaves scene's)
+FASTDVD_RUNS = {("smooth", "fp32"): 2, ("smooth", "bf16"): 4, ("leaves", "fp32"): 1,
+                ("leaves", "bf16"): 2}
 #: the conv pair's two shapes on that path, (C, H, W) of the activation with
 #: N = 8: half and quarter resolution, 4 CvBlocks per denoiser call each
 CONVPAIR_MAIN_SHAPES = {"c64_256": (64, 256, 256), "c128_128": (128, 128, 128)}
@@ -144,6 +169,9 @@ FASTDVD_PARITY = {
 #: CvBlocks of each of the 36 no-grad bf16 FastDVDnet calls; DDnet (C = 40,
 #: 80) and the trigger's forward launch no conv pair
 DDNET_LAUNCHES = {"x_update": 116, "tv_chambolle": 80, "convpair": 288}
+#: the ddnet phase's runs per scene, the first a warm-up unless it is the
+#: only one (the smooth scene's runs warm the leaves scene's)
+DDNET_RUNS = {"smooth": 3, "leaves": 1}
 #: the parity run of that row at 64x64x8 in float32: schedule (6, 4), the
 #: trigger at k = 5; 40 + 10 + 40 x-updates, 40 + 40 TV proxes
 DDNET_PARITY_ITERS = (6, 4)
@@ -256,18 +284,25 @@ TRAIN_LAUNCHES = {
 }
 
 #: the six-scene reproduction run (``run_all_scenes.main``): card vs CPU on the
-#: photograph stand-ins at 64x64x8 over 2 measurements, float32 (FastDVDnet and
+#: photograph stand-ins at 64x64x8 (Beauty in the ffd mode, Runner in
+#: fastdvd-dd) over 2 measurements, float32 (FastDVDnet and
 #: DDnet from ``weights/``, FFDNet from PyTorch's seeded init), held to
 #: ``PIPELINE_PARITY_BAR`` in warm and final dB and in x, with the same picks
 #: (FastDVDnet's adaptation noise on: ``run_reconstruction`` draws it from a
-#: CPU generator, the same draws on both sides); then every scene in every mode at 512x512x8, one measurement (the script's
+#: CPU generator, the same draws on both sides); then one scene in each mode
+#: at 512x512x8 (``scenes_full``: every scene), one measurement (the script's
 #: two cut to one for time: the carry across measurements is the ``cli``
 #: phase's and the CPU tests'), FastDVDnet and DDnet in bf16 on ``weights/``,
 #: the FFDNet modes with ``random_init`` (no FFDNet checkpoint exists, so their
 #: dB measure nothing: they give times and launches)
-SCENES_PARITY = dict(scenes=["Beauty", "Runner"], modes=("ffd", "fastdvd-dd"), b=8, size=64,
+SCENES_PARITY = dict(scenes={"ffd": ["Beauty"], "fastdvd-dd": ["Runner"]}, b=8, size=64,
                      n_meas=2)
 SCENES = dict(b=8, size=512, n_meas=1)
+#: the default run's scene per mode (one row each, of the three styles:
+#: leaves, textured, photograph; Runner's fastdvd-dd row is the one that
+#: departs from ``SCENES.md``); the named-only ``scenes_full`` runs all 24
+SCENES_DEFAULT = {"ffd": "Jockey", "fastdvd": "Bosphorus", "ffd-dd": "Beauty",
+                  "fastdvd-dd": "Runner"}
 #: the block zoo, FFDNet-IPOL, SpatialDnCNN, PyramidEncoder, VGG features and
 #: imresize on the card vs the CPU: bar on each
 #: output against its largest magnitude (float32, TF32 off); their times at
@@ -481,6 +516,37 @@ STUDIES_SIGMA_REL = 1e-6
 #: memory on the TPU
 STUDIES_FULL_COMBOS = ("4:", "4:256", "16:")
 
+#: the timing drivers (``bench``): ``bench.main``'s three modes at bench.py's
+#: 512x512x8 (FFDNet-color with bench.py's fallback variables,
+#: ``adaptivepnp_sci_torch/weights/ffdnet_color_init0.npz``), timed; and the
+#: same calls at 128x128x8, where JAX's readings on the CPU are known (full
+#: width is not run on a CPU here): each mode's mean per-frame PSNR, and the
+#: flagship's on the dead-leaves scene, from
+#: ``JAX_PLATFORMS=cpu python -m pytest tests/test_torch_bench.py -m slow -s``
+#: (``test_bench_jax_readings``, which holds these constants to JAX's calls)
+BENCH_SIZE = 512
+BENCH_JAX_SIZE = 128
+BENCH_JAX_DB = {"warmstart": 45.195836544036865, "fixed": 5.754814863204956,
+                "flagship": 5.760444521903992, "flagship_natural": 5.68152129650116}
+#: the card's readings against JAX's: the first on the card (H100, 700 W)
+#: read at most 5.2e-6 dB (the warm start; the flagship 1.2e-7, on leaves
+#: 1.3e-6), so the bar, first the north star's 0.1 dB, is 3e-5
+BENCH_JAX_BAR_DB = 3e-5
+#: launches of one reconstruction per mode (warmstart: 40 GAP-TV iterations
+#: and one ADMM-TV step, each an x-update and a TV prox)
+BENCH_LAUNCHES = {"flagship": FLAGSHIP_LAUNCHES, "fixed": FLAGSHIP_LAUNCHES,
+                  "warmstart": {"x_update": 41, "tv_chambolle": 41, "convpair": 0}}
+#: the suite (``suite``): every row of ``run_benchmark_suite`` and
+#: ``bench_batched`` at 1 and 2 measurements, at ``STUDIES``' size, FFDNet
+#: width and cut schedules, once each (``n = 0``), the card against the CPU's
+#: plain path: float32 rows at ``STUDIES_F32``, DDnet in bf16 at
+#: ``STUDIES_BF16``, FastDVDnet in bf16 at ``STUDIES_BF16_LOOP``; and row 4
+#: uncut at 512^2 against the ``bench`` flagship's reading (the same call)
+SUITE_BATCHES = (1, 2)
+SUITE_BF16 = {"5a", "5c"}
+SUITE_BF16_LOOP = {"3", "3b"}
+SUITE_ROW4_DB = 1e-3
+
 
 def scenes_launches(name: str, mode: str, n_meas: int, lowp: bool) -> dict:
     """K1/K2/K3 launches of one row of the six-scene run, worked out from the
@@ -564,6 +630,28 @@ def studies_launches(tool: str) -> dict:
     raise KeyError(tool)
 
 
+def suite_launches(key: str) -> dict:
+    """K1/K2/K3 launches of one row of the ``suite`` phase on the card (one
+    run each; row 1 also its metrics run), worked out from the rows: a
+    40-iteration GAP-TV warm start 40 + 40 per measurement; a solve of T
+    iterations T x-updates (the batched and tiled drivers one launch a step
+    for all measurements or tiles); bf16 FastDVDnet 8 conv pairs an
+    iteration; ``"t1"``, ``"t2"``: ``bench_batched`` at 1 and 2 measurements."""
+    from adaptivepnp_sci_torch import run_benchmark_suite as suite
+
+    cfg = suite.suite_configs(STUDIES["cut"], STUDIES["interval"])
+    w = 40
+    if key == "1":
+        return _launches(2 * w, 2 * w)
+    if key in ("t1", "t2"):
+        t = int(key[1])
+        return _launches(t * w + sum(cfg["2"].iters), t * w)
+    it = sum(cfg[key].iters)
+    if key == "5b":
+        return _launches(suite.N_BATCHED * w + it, suite.N_BATCHED * w)
+    return _launches(w + it, w, 8 * it if key in SUITE_BF16_LOOP else 0)
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -576,7 +664,15 @@ def _flat_variables(variables: dict) -> np.ndarray:
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields, "t_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
+
+
+def quiet(run):
+    """``run()``'s result and what it printed."""
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        out = run()
+    return out, text.getvalue()
 
 
 def require(cond: bool, what: str) -> None:
@@ -757,13 +853,15 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     needed = {"k1", "k2", "k3", "flagship", "fastdvd", "ddnet", "tiled", "sequence", "cli",
-              "train", "scenes", "parallel", "weights", "seams", "studies"}
+              "train", "scenes", "parallel", "weights", "seams", "studies", "bench", "suite"}
     if "kernels" in phases and not needed <= phases:
         ap.error(f"the kernels phase needs the {', '.join(sorted(needed))} phases")
     if "seams" in phases and "tiled" not in phases:
         ap.error("the seams phase needs the tiled phase (its 2048^2 snapshot)")
     if "seams_halo" in phases and not {"tiled", "seams"} <= phases:
         ap.error("the seams_halo phase needs the tiled and seams phases")
+    if "suite" in phases and "bench" not in phases:
+        ap.error("the suite phase needs the bench phase (its flagship's reading)")
     if "parallel" in phases and not {"tiled", "flagship", "fastdvd"} <= phases:
         ap.error("the parallel phase needs the tiled, flagship and fastdvd phases (its "
                  "one-process references)")
@@ -1334,7 +1432,7 @@ def main(argv: list[str]) -> int:
             for mode, kw in modes.items():
                 prior = fastdvd_prior(FastDVDnet(**kw))
                 secs = []
-                for rep in range(4):  # one warm-up, then three timed
+                for rep in range(FASTDVD_RUNS[style, mode]):  # one warm-up, then timed
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
                     cuda_kernels.reset_launches()
@@ -1351,15 +1449,16 @@ def main(argv: list[str]) -> int:
                         require(by_shape == {shp: 144 for shp in CONVPAIR_MAIN_SHAPES.values()},
                                 f"fastdvd bf16 {style}: conv pair launches {by_shape}")
                         report.setdefault("launches_convpair", by_shape)
-                    if rep:
+                    if rep or FASTDVD_RUNS[style, mode] == 1:
                         secs.append(dt)
-                    else:
+                    if not rep:
                         first = _flat_variables(res.variables)
                 # the same call's adapted weights, first run against last: how
                 # far one process is from itself (cuDNN's backward algorithms)
                 start = _flat_variables(fastdvd_params)
                 last = _flat_variables(res.variables)
-                repeat_dw = float(np.linalg.norm(last - first) / np.linalg.norm(last - start))
+                repeat_dw = (float(np.linalg.norm(last - first) / np.linalg.norm(last - start))
+                             if FASTDVD_RUNS[style, mode] > 1 else None)
                 peak = torch.cuda.max_memory_allocated()
                 require(tuple(res.x_bayer.shape) == (8, 512, 512)
                         and tuple(res.x_rgb.shape) == (8, 512, 512, 3), "fastdvd: shapes")
@@ -1399,19 +1498,22 @@ def main(argv: list[str]) -> int:
                 with torch.no_grad():
                     warm_ms = time_ms(lambda: gap_tv(
                         sc.meas, sc.mask, GapTVConfig(iters=40), device="cuda"), n=3)
+                extra = ({"fp32_no_remat": fastdvd_breakdown(torch, sc, fastdvd_params, None,
+                                                             False)}
+                         if "profiles" in phases else {})
                 emit("fastdvd_breakdown", warm_start_40_ms=warm_ms,
                      fp32_remat=fastdvd_breakdown(torch, sc, fastdvd_params, None, True),
-                     fp32_no_remat=fastdvd_breakdown(torch, sc, fastdvd_params, None, False),
                      bf16_no_remat=fastdvd_breakdown(torch, sc, fastdvd_params,
                                                      torch.bfloat16, False),
-                     **card)
-                prior = fastdvd_prior(FastDVDnet(**modes["bf16"]))
-                cuda_kernels.reset_launches()
-                emit("fastdvd_profile", mode="bf16",
-                     **flagship_profile(torch, lambda: run_fastdvd(sc, prior, "cuda"), None),
-                     **card)
-                require(dict(cuda_kernels.launches) == FASTDVD_LAUNCHES["bf16"],
-                        f"fastdvd profile: launches {cuda_kernels.launches}")
+                     **extra, **card)
+                if "profiles" in phases:
+                    prior = fastdvd_prior(FastDVDnet(**modes["bf16"]))
+                    cuda_kernels.reset_launches()
+                    emit("fastdvd_profile", mode="bf16",
+                         **flagship_profile(torch, lambda: run_fastdvd(sc, prior, "cuda"), None),
+                         **card)
+                    require(dict(cuda_kernels.launches) == FASTDVD_LAUNCHES["bf16"],
+                            f"fastdvd profile: launches {cuda_kernels.launches}")
 
     # ---------------------------------------------- deep demosaicking row
     ddnet_params = ddnet_from_flax(load_variables_npz(str(ROOT / "weights" / "ddnet.npz")))
@@ -1495,7 +1597,7 @@ def main(argv: list[str]) -> int:
                           device="cuda")
             warm_psnr = warm.psnr_per_frame.mean().item()
             secs = []
-            for rep in range(4):  # one warm-up, then three timed
+            for rep in range(DDNET_RUNS[style]):  # one warm-up, then timed
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 cuda_kernels.reset_launches()
@@ -1510,7 +1612,7 @@ def main(argv: list[str]) -> int:
                         f"ddnet {style}: conv pair launches {by_shape}")
                 report.setdefault("launches_ddnet", counts)
                 report.setdefault("launches_convpair_ddnet", by_shape)
-                if rep:
+                if rep or DDNET_RUNS[style] == 1:
                     secs.append(dt)
             peak = torch.cuda.max_memory_allocated()
             require(tuple(res.x_bayer.shape) == (8, 512, 512)
@@ -1536,29 +1638,29 @@ def main(argv: list[str]) -> int:
             emit("ddnet_breakdown", **parts, ddnet_calls=ddnet_calls,
                  ddnet_share_of_wall=ddnet_calls * parts["ddnet_bf16_ms"] / (med * 1e3),
                  **card)
-            cuda_kernels.reset_launches()
-            emit("ddnet_profile", **flagship_profile(torch, lambda: run_row(sc, prior, dm, "cuda"),
-                                                     None), **card)
-            require(dict(cuda_kernels.launches) == DDNET_LAUNCHES,
-                    f"ddnet profile: launches {cuda_kernels.launches}")
+            if "profiles" in phases:
+                cuda_kernels.reset_launches()
+                emit("ddnet_profile", **flagship_profile(
+                    torch, lambda: run_row(sc, prior, dm, "cuda"), None), **card)
+                require(dict(cuda_kernels.launches) == DDNET_LAUNCHES,
+                        f"ddnet profile: launches {cuda_kernels.launches}")
             # the same row with the demosaicker adapted in the loop, at the
             # pipeline's defaults (one Adam step an iteration, carried Adam)
+            # (one run, its first: the backward of bf16 DDnet at 512^2 is new here)
             spec = make_dm_spec(DDnet(dtype=torch.bfloat16), **DM_UPDATE)
-            secs = []
-            for _ in range(2):  # a warm-up (first backward calls), then one timed
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                cuda_kernels.reset_launches()
-                t0 = time.perf_counter()
-                upd = run_row_dm_update(sc, prior, spec, "cuda")
-                torch.cuda.synchronize()
-                secs.append(time.perf_counter() - t0)
-                counts = dict(cuda_kernels.launches)
-                require(counts == DDNET_LAUNCHES, f"ddnet dm_update: launches {counts}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            upd = run_row_dm_update(sc, prior, spec, "cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(cuda_kernels.launches)
+            require(counts == DDNET_LAUNCHES, f"ddnet dm_update: launches {counts}")
             require(bool(torch.isfinite(upd.x_bayer).all()), "ddnet dm_update: non-finite")
             emit("ddnet_dm_update", scene=style, lr=DM_UPDATE["lr"],
                  steps_per_iteration=DM_UPDATE["update_per_iter"], optimizer="carried Adam",
-                 seconds_per_snapshot=secs[1], seconds_warm_up=secs[0],
+                 first_run_seconds_per_snapshot=secs,
                  psnr_db=upd.psnr_per_frame.mean().item(), ssim=upd.ssim_per_frame.mean().item(),
                  guard=guard_pick(upd), peak_mem_bytes=torch.cuda.max_memory_allocated(),
                  launches_per_reconstruction=counts, **card)
@@ -1704,9 +1806,10 @@ def main(argv: list[str]) -> int:
         try:
             for chunk in (TILED["tile_chunk"], 4):
                 secs, groups = [], []
-                # tile_chunk 2: one warm-up, then two timed runs; 4: one timed
-                # run, after the runs of 2 have warmed the same kernels and models
-                reps = 3 if chunk == TILED["tile_chunk"] else 1
+                # one timed run each: the fastdvd phase's bf16 runs have warmed
+                # the same kernels and models at the tiles' shapes, and the run
+                # of 2 those of 4
+                reps = 1
                 for rep in range(reps):
                     group_ms.clear()
                     torch.cuda.synchronize()
@@ -2190,7 +2293,7 @@ def main(argv: list[str]) -> int:
             tr = Trainer(fastdvd_task(FastDVDnet(remat=remat)), None, TrainerConfig(), device=dev)
             for b in clips:
                 tr.train_step(b)
-            if remat:
+            if remat and "profiles" in phases:
                 prof = flagship_profile(torch, lambda: [tr.train_step(b) for b in clips], None)
                 breakdown["profile_3_steps"] = prof
             torch.cuda.synchronize()
@@ -2207,7 +2310,7 @@ def main(argv: list[str]) -> int:
              launches_by_step=TRAIN_LAUNCHES, **card)
 
     # ----------------------------------------------------- the six-scene run
-    if "scenes_parity" in phases or "scenes" in phases:
+    if phases & {"scenes_parity", "scenes", "scenes_full"}:
         import contextlib
         import functools
         import io
@@ -2256,21 +2359,20 @@ def main(argv: list[str]) -> int:
 
     if "scenes_parity" in phases:
         sp = SCENES_PARITY
-        sc_kw = dict(b=sp["b"], h=sp["size"], w=sp["size"], n_meas=sp["n_meas"],
-                     scenes=sp["scenes"])
+        sc_kw = dict(b=sp["b"], h=sp["size"], w=sp["size"], n_meas=sp["n_meas"])
         db_bar, dx_bar, _ = PIPELINE_PARITY_BAR
         with tempfile.TemporaryDirectory() as d:
-            rows, logs = {}, {mode: [] for mode in sp["modes"]}
+            rows, logs = {}, {mode: [] for mode in sp["scenes"]}
             for device in ("cpu", "cuda"):
-                for mode in sp["modes"]:
+                for mode in sp["scenes"]:
                     t0 = time.perf_counter()
                     with counted_scenes(logs[mode] if device == "cuda" else []):
                         rows[device, mode] = run_mode(Path(d) / device / mode, mode, device,
-                                                      sc_kw, random_init=mode == "ffd",
-                                                      bf16=False)
+                                                      {**sc_kw, "scenes": sp["scenes"][mode]},
+                                                      random_init=mode == "ffd", bf16=False)
                     emit("scenes_parity_run", device=device, mode=mode,
                          seconds=time.perf_counter() - t0)
-            for mode in sp["modes"]:
+            for mode in sp["scenes"]:
                 row_logs = [e for e in logs[mode] if e["kind"] == "row"]
                 for cpu_row, gpu_row, e in zip(rows["cpu", mode], rows["cuda", mode], row_logs,
                                                strict=True):
@@ -2295,15 +2397,17 @@ def main(argv: list[str]) -> int:
                     require(res["warm_dpsnr_db"] <= db_bar and res["final_dpsnr_db"] <= db_bar
                             and res["max_abs_dx"] <= dx_bar and picks["cuda"] == picks["cpu"]
                             and e["launches"] == want, f"scenes_parity {name} {mode}: {res}")
-            warm = [e["launches"] for mode in sp["modes"] for e in logs[mode]
+            warm = [e["launches"] for mode in sp["scenes"] for e in logs[mode]
                     if e["kind"] == "warm"]
-            require(len(warm) == len(sp["scenes"]) * len(sp["modes"]) and all(
+            require(len(warm) == sum(map(len, sp["scenes"].values())) and all(
                 w == {"x_update": 40 * sp["n_meas"], "tv_chambolle": 40 * sp["n_meas"],
                       "convpair": 0} for w in warm), f"scenes_parity: warm-start launches {warm}")
 
-    if "scenes" in phases:
+    if phases & {"scenes", "scenes_full"}:
         sk = SCENES
         sc_kw = dict(b=sk["b"], h=sk["size"], w=sk["size"], n_meas=sk["n_meas"])
+        full_run = "scenes_full" in phases
+        n_rows = len(scenes_run.MODES) * (len(scenes_run.SCENE_STANDINS) if full_run else 1)
         make = scenes_run._make_scene_data
         scenes_run._make_scene_data = functools.cache(make)  # one scene for the four modes
         log: list[dict] = []
@@ -2312,18 +2416,20 @@ def main(argv: list[str]) -> int:
         try:
             with tempfile.TemporaryDirectory() as d:
                 for mode in scenes_run.MODES:
+                    names = list(scenes_run.SCENE_STANDINS) if full_run else [SCENES_DEFAULT[mode]]
                     with counted_scenes(log):
-                        for row in run_mode(Path(d) / mode, mode, "cuda", sc_kw,
+                        for row in run_mode(Path(d) / mode, mode, "cuda",
+                                            {**sc_kw, "scenes": names},
                                             random_init=mode.startswith("ffd")):
                             rows.append(row)
                     table = (Path(d) / mode / scenes_run.TABLE_NAME).read_text()
-                    require(table.count("\n| ") == 1 + len(scenes_run.SCENE_STANDINS),
+                    require(table.count("\n| ") == 1 + len(names),
                             f"scenes {mode}: table {table}")
         finally:
             scenes_run._make_scene_data = make
         row_logs = [e for e in log if e["kind"] == "row"]
         warm_logs = [e for e in log if e["kind"] == "warm"]
-        require(len(rows) == len(row_logs) == 24 and len(warm_logs) == 24,
+        require(len(rows) == len(row_logs) == n_rows and len(warm_logs) == n_rows,
                 f"scenes: {len(rows)} rows, {len(warm_logs)} warm starts")
         scene_counts = {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
         scene_shapes: dict[tuple[int, int, int], int] = {}
@@ -2350,7 +2456,8 @@ def main(argv: list[str]) -> int:
                 scene_shapes[shape] = scene_shapes.get(shape, 0) + v
         report["launches_scenes"] = scene_counts
         report["launches_convpair_scenes"] = scene_shapes
-        emit("scenes", shape=[sk["n_meas"], sk["b"], sk["size"], sk["size"]],
+        emit("scenes_full" if full_run else "scenes",
+             shape=[sk["n_meas"], sk["b"], sk["size"], sk["size"]],
              rows=len(rows), seconds=time.perf_counter() - t_phase,
              warm_start_seconds=[e["seconds"] for e in warm_logs[:6]],
              launches=scene_counts,
@@ -2968,9 +3075,7 @@ def main(argv: list[str]) -> int:
 
     # ------------------------------------------------------------- studies
     if phases & {"studies", "studies_full"}:
-        import contextlib
         import dataclasses
-        import io
 
         from adaptivepnp_sci_torch import (
             ab_cv_guard,
@@ -2989,12 +3094,6 @@ def main(argv: list[str]) -> int:
             sweep_fastdvd_relax,
             sweep_fidelity,
         )
-
-        def quiet(run):
-            """``run()``'s result and what it printed."""
-            with contextlib.redirect_stdout(io.StringIO()) as text:
-                out = run()
-            return out, text.getvalue()
 
     if "studies" in phases:
         st = STUDIES
@@ -3320,6 +3419,170 @@ def main(argv: list[str]) -> int:
                  result=json.loads(json.dumps(numbers(out), default=str)), **card)
             torch.cuda.empty_cache()
 
+    # --------------------------------------------------------------- bench
+    if phases & {"bench", "suite", "suite_full"}:
+        from adaptivepnp_sci_torch import bench, bench_batched
+        from adaptivepnp_sci_torch import run_benchmark_suite as suite
+
+    if "bench" in phases:
+        torch.cuda.empty_cache()
+        bench_counts = {k: 0 for k in _K}
+        readings = {}
+        for size in (BENCH_SIZE, BENCH_JAX_SIZE):
+            for mode in bench.MODES:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                cuda_kernels.reset_launches()
+                t0 = time.perf_counter()
+                (line, res), text = quiet(lambda: bench.main(mode, "cuda", size))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = dict(cuda_kernels.launches)
+                # the warm-up and 6 timed runs, and in the flagship mode the leaves scene
+                runs = 7 + (mode == "flagship")
+                want = {k: runs * v for k, v in BENCH_LAUNCHES[mode].items()}
+                for name, r in res.items():
+                    require(tuple(r.x_bayer.shape) == (8, size, size)
+                            and bool(torch.isfinite(r.x_bayer).all()
+                                     & torch.isfinite(r.x_rgb).all()),
+                            f"bench {mode} {size} {name}: shapes or non-finite output")
+                fields = {}
+                if size == BENCH_JAX_SIZE:
+                    got = {mode: line["psnr_db"]}
+                    if mode == "flagship":
+                        got["flagship_natural"] = line["psnr_db_natural"]
+                    gaps = {k: abs(v - BENCH_JAX_DB[k]) for k, v in got.items()}
+                    fields = dict(jax_cpu_db={k: BENCH_JAX_DB[k] for k in got},
+                                  against_jax_db=gaps, bar_db=BENCH_JAX_BAR_DB)
+                    readings.update(gaps)
+                else:
+                    for k in _K:
+                        bench_counts[k] += counts[k]
+                    report.setdefault("bench", {})[mode] = line
+                emit("bench", mode=mode, shape=[8, size, size], line=json.loads(text.strip()),
+                     unrounded=line, seconds=secs, launches=counts, launches_predicted=want,
+                     peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                     weights="adaptivepnp_sci_torch/weights/ffdnet_color_init0.npz", **fields,
+                     **card)
+                print(text.strip(), flush=True)
+                require(counts == want, f"bench {mode} {size}: launches {counts}, want {want}")
+                require(all(v <= BENCH_JAX_BAR_DB for v in fields.get("against_jax_db",
+                                                                        {}).values()),
+                        f"bench {mode} {size}: {fields} against JAX's CPU readings")
+        report["launches_bench"] = bench_counts
+        emit("bench_total", against_jax_db=readings, bar_db=BENCH_JAX_BAR_DB,
+             launches=bench_counts, **card)
+
+    # --------------------------------------------------------------- suite
+    if "suite" in phases:
+        st = STUDIES
+        size, narrow = st["size"], dict(nc=st["nc"], nb=st["nb"])
+        small = ffdnet_from_flax(flax_style_ffdnet_params(st["nc"], st["nb"], seed=0))
+        cfg = suite.suite_configs(st["cut"], st["interval"])
+        suite_counts = {k: 0 for k in _K}
+        suite_shapes: dict = {}
+        failed = []
+        t_phase = time.perf_counter()
+
+        def x_gaps(g, c):
+            d = g.double().cpu() - c.double().cpu()
+            return {"max": float(d.abs().max()), "rms": float(d.pow(2).mean().sqrt())}
+
+        def compare(name, g_db, c_db, gx, cx, bars, counts, want, **extra):
+            gaps = {"db": abs(g_db - c_db), **x_gaps(gx, cx)}
+            emit("suite", row=name, shape=[8, size, size], launches=counts,
+                 launches_predicted=want, gaps=gaps, bars=bars, psnr_cuda=g_db, psnr_cpu=c_db,
+                 **extra, **card)
+            if counts != want:
+                failed.append(f"suite {name}: launches {counts}, predicted {want}")
+            if not (all(gaps[k] <= v for k, v in bars.items())
+                    and bool(torch.isfinite(gx).all())):
+                failed.append(f"suite {name}: card against the CPU {gaps}, bars {bars}")
+
+        def counted_run(run):
+            torch.cuda.synchronize()
+            cuda_kernels.reset_launches()
+            out = run()
+            torch.cuda.synchronize()
+            for shp, k in cuda_kernels.convpair_launches.items():
+                suite_shapes[shp] = suite_shapes.get(shp, 0) + k
+            counts = dict(cuda_kernels.launches)
+            for k in _K:
+                suite_counts[k] += counts[k]
+            return out, counts
+
+        for key in suite.ROWS:
+            def rows(d, key=key):
+                return suite.run_rows(size, d, small, st["cut"], st["interval"], n=0,
+                                      rows=(key,), model=FFDNet(**narrow))[0]
+
+            (_, name, secs, g_db, _, g), counts = counted_run(lambda: rows("cuda"))
+            _, _, cpu_s, c_db, _, c = rows("cpu")
+            bars = (STUDIES_BF16_LOOP if key in SUITE_BF16_LOOP else
+                    STUDIES_BF16 if key in SUITE_BF16 else STUDIES_F32)
+            compare(key, g_db, c_db, g.x_bayer, c.x_bayer, bars, counts, suite_launches(key),
+                    label=name, iters=list(cfg[key].iters) if key in cfg else [40],
+                    card_s=secs, cpu_s=cpu_s)
+        for t in SUITE_BATCHES:
+            def batched(d, t=t):
+                return quiet(lambda: bench_batched.main(
+                    small, (t,), size, d, cfg["2"], n=0, model=FFDNet(**narrow)))[0][0]
+
+            (_, secs, _, g_db, _, gx), counts = counted_run(lambda: batched("cuda"))
+            _, cpu_s, _, c_db, _, cx = batched("cpu")
+            compare(f"bench_batched t={t}", g_db, c_db, gx, cx, STUDIES_F32, counts,
+                    suite_launches(f"t{t}"), card_s=secs, cpu_s=cpu_s)
+        # row 4 uncut at bench.py's size: the bench flagship's call
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launches()
+        (_, _, _, row4_db, _, r4), = suite.run_rows(BENCH_SIZE, "cuda", n=0, rows=("4",))
+        torch.cuda.synchronize()
+        gap4 = abs(row4_db - report["bench"]["flagship"]["psnr_db"])
+        emit("suite", row="4 at 512^2, uncut", psnr_db=row4_db,
+             bench_flagship_psnr_db=report["bench"]["flagship"]["psnr_db"], gap_db=gap4,
+             bar_db=SUITE_ROW4_DB, launches=dict(cuda_kernels.launches), **card)
+        if gap4 > SUITE_ROW4_DB or dict(cuda_kernels.launches) != FLAGSHIP_LAUNCHES:
+            failed.append(f"suite row 4 at 512^2: {gap4} dB from the bench flagship, "
+                          f"launches {cuda_kernels.launches}")
+        require(not failed, "; ".join(failed))
+        report["launches_suite"] = suite_counts
+        report["launches_convpair_suite"] = suite_shapes
+        emit("suite_total", seconds=time.perf_counter() - t_phase, launches=suite_counts,
+             **card)
+
+    # ---------------------------------------------------------- suite_full
+    if "suite_full" in phases:
+        # the suite's rows and the batched sweep at their published sizes,
+        # FFDNet-color with bench.py's fallback variables (its dB mean nothing)
+        torch.cuda.empty_cache()
+        rows = []
+        for key in suite.ROWS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            (row,) = suite.run_rows(rows=(key,))
+            torch.cuda.synchronize()
+            frames = suite.N_BATCHED * 8 if key == "5b" else 8
+            emit("suite_full", row=key, label=row[1], shape=list(row[5].x_bayer.shape),
+                 seconds_per_run=row[2], frames_per_s=frames / row[2], psnr_db=row[3],
+                 ssim=row[4], runs=1 + suite.ROW_N[key], seconds=time.perf_counter() - t0,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                 launches=dict(cuda_kernels.launches), **card)
+            rows.append(row)
+            torch.cuda.empty_cache()
+        print(suite.table(rows, 512, "cuda"), flush=True)
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        sweep, text = quiet(lambda: bench_batched.main())
+        emit("suite_full", tool="bench_batched", lines=text.splitlines(),
+             rows=[{"t": r[0], "seconds_per_run": r[1], "frames_per_s": r[2], "psnr_db": r[3],
+                    "peak_mem_bytes": r[4]} for r in sweep],
+             out_of_memory_at=next((r[0] for r in sweep if r[2] is None), None),
+             seconds=time.perf_counter() - t0, launches=dict(cuda_kernels.launches), **card)
+        del sweep, rows
+        torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- kernels
     if "kernels" in phases:
         # launches on the main paths: the flagship's for its two kernels, the
@@ -3335,6 +3598,8 @@ def main(argv: list[str]) -> int:
         launches_parallel = [dict(r) for r in report["launches_parallel_tiled"]]
         tools = {k: report[f"launches_{k}"] for k in ("eval_weights", "harvest", "seams")}
         launches_studies = dict(report["launches_studies"])
+        launches_bench = dict(report["launches_bench"])
+        launches_suite = dict(report["launches_suite"])
         for name, shape in CONVPAIR_MAIN_SHAPES.items():
             launches_scenes[f"convpair_{name}"] = report["launches_convpair_scenes"].get(shape, 0)
             launches_cli[f"convpair_{name}"] = report["launches_convpair_cli"].get(shape, 0)
@@ -3347,6 +3612,9 @@ def main(argv: list[str]) -> int:
             c, h, w = shape
             launches_studies[f"convpair_{name}"] = report["launches_convpair_studies"].get(
                 (c, h * STUDIES["size"] // 512, w * STUDIES["size"] // 512), 0)
+            launches_suite[f"convpair_{name}"] = report["launches_convpair_suite"].get(
+                (c, h * STUDIES["size"] // 512, w * STUDIES["size"] // 512), 0)
+            launches_bench[f"convpair_{name}"] = 0
         pallas = {"x_update": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:58",
                   "tv_chambolle": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:93",
                   "convpair": "scripts/ab_pallas_convpair.py:47"}
@@ -3368,6 +3636,8 @@ def main(argv: list[str]) -> int:
                          "launches_train": launches_train[name],
                          "launches_scenes": launches_scenes[name],
                          "launches_studies": launches_studies[name],
+                         "launches_bench": launches_bench[name],
+                         "launches_suite": launches_suite[name],
                          "launches_parallel_tiled_per_rank": [p[name] for p in launches_parallel],
                          **{f"launches_{k}": v[name] for k, v in tools.items()},
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -3387,6 +3657,9 @@ def main(argv: list[str]) -> int:
                 f"harvest_iterates missed a kernel: {rows}")
         require(all(r["launches_studies"] > 0 for r in rows),
                 f"the A/B, sweep and decomposition tools missed a kernel: {rows}")
+        require(all(r["launches_suite"] > 0 for r in rows)
+                and all(r["launches_bench"] > 0 for r in rows[:2]),
+                f"the benchmark suite or bench.py's modes missed a kernel: {rows}")
         # the frame-sharded snapshots: the split x-update (the fused form runs
         # on none of them), the TV and conv-pair kernels on each rank's frames
         frame = report["launches_parallel_frame"]
@@ -3410,6 +3683,7 @@ def main(argv: list[str]) -> int:
                 f"a kernel was never launched on the frame-sharded path: {rows}")
         print(json.dumps({"kernels": rows}), flush=True)
 
+    emit("total", seconds=time.perf_counter() - T0, phases=sorted(phases), **card)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                             "adaptivepnp_sci_tpu"))

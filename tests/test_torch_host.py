@@ -6,6 +6,7 @@ helpers (``utils/profiling.py``, ``torch.profiler``)."""
 
 import json
 import logging
+import time
 
 import numpy as np
 import pytest
@@ -187,3 +188,49 @@ def test_step_timer_records_each_step():
         with timer.measure() as h:
             h["out"] = {"a": [torch.ones(4) * 2]}
     assert len(timer.history) == 3 and 0 < timer.best <= timer.mean
+
+
+def _profiled_collectives(rank, init, out_dir):
+    """One of 2 gloo ranks: collectives and a convolution under the profiler,
+    then ``collective_profile``'s reading and ``key_averages``' sums of the
+    same profile written to ``out_dir``."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaptivepnp_sci_torch.multihost_validation import collective_profile
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, world_size=2, rank=rank)
+    x = torch.rand(4, 32, 32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            dist.all_gather([torch.empty_like(x) for _ in range(2)], x)
+            dist.all_reduce(x.clone())
+            torch.nn.functional.conv2d(x[None], torch.rand(4, 4, 3, 3))
+        dist.broadcast(x, 0)
+    got = collective_profile(prof)
+    want = [(e.key, e.count, e.cpu_time_total / 1e3) for e in prof.key_averages()
+            if e.key.startswith(("gloo:", "nccl:")) and e.cpu_time_total > 0]
+    np.savez(f"{out_dir}/rank{rank}.npz", want_ms=sum(w[2] for w in want),
+             want_count=sum(w[1] for w in want),
+             want_keys=np.array(sorted(f"{k} x{n} {ms:.3f} ms" for k, n, ms in want)), **got)
+    dist.destroy_process_group()
+
+
+def test_collective_profile_sums_what_key_averages_sums(tmp_path):
+    """``multihost_validation.collective_profile`` reads the profiler's raw
+    events; ``key_averages`` (what it read before, slow on long runs) must
+    give the same counts, names and milliseconds on 2 gloo ranks."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.spawn(_profiled_collectives, args=(f"file://{tmp_path}/rdv", str(tmp_path)),
+                   nprocs=2, join=False)
+    deadline = time.monotonic() + 120
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        assert time.monotonic() < deadline, "the gloo workers did not finish"
+    for rank in range(2):
+        with np.load(tmp_path / f"rank{rank}.npz") as r:
+            assert int(r["collectives_count"]) == int(r["want_count"]) == 7
+            assert abs(float(r["collectives_ms"]) - float(r["want_ms"])) < 1e-6
+            assert sorted(r["collectives_by_key"].tolist()) == r["want_keys"].tolist()
+            assert float(r["nccl_device_ms"]) == 0.0

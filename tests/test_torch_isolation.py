@@ -192,6 +192,16 @@ except RuntimeError as err:
     assert "NVIDIA GPU" in str(err)
 else:
     raise AssertionError("ab_convpair ran without a GPU")
+# the timing drivers: bench's warm-start mode, one batch, two suite rows at 16x16
+from adaptivepnp_sci_torch import bench, bench_batched, run_benchmark_suite
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    line, _ = bench.main("warmstart", "cpu", 16, n=0)
+    batches = bench_batched.main(batches=(1,), size=16, device="cpu", n=0,
+                                 config=ADMMConfig(sigma=(0.1,), iters=(1,)))
+    suite = run_benchmark_suite.run_rows(16, "cpu", cut=1, interval=1, n=0, rows=("1", "6"))
+assert line["device"] == "cpu" and '"psnr_db"' in out.getvalue() and "batch  1:" in out.getvalue()
+assert batches[0][5].shape == (1, 8, 16, 16) and [r[0] for r in suite] == ["1", "6"]
+assert set(run_benchmark_suite.suite_configs()) == set(run_benchmark_suite.ROWS) - {"1"}
 assert cuda_kernels.launches == {"x_update": 0, "tv_chambolle": 0, "convpair": 0}, \
     cuda_kernels.launches
 bad = sorted(m for m in sys.modules if sys.modules[m] is not None and m.split(".")[0] in (
