@@ -50,6 +50,7 @@ from adaptivepnp_sci_torch.parallel.mesh import (
     gather,
     gathered_sum,
 )
+from adaptivepnp_sci_torch.utils.profiling import annotate, count
 
 if TYPE_CHECKING:
     from adaptivepnp_sci_torch.solvers.priors import Prior
@@ -393,6 +394,7 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
     fresh = adapt_cfg.fresh_opt_per_trigger
     crop = None if adapt_cfg.crop is None else int(adapt_cfg.crop)
 
+    @annotate("apnp.adapt")
     def adapt(net: nn.Module, rgb_in: Tensor, sigma: Tensor, y_p: Tensor, phi_p: Tensor,
               y_f: Tensor, phi_f: Tensor, generator: torch.Generator | None = None,
               opt: torch.optim.Adam | None = None, shard: ItemShard | None = None,
@@ -465,6 +467,7 @@ def make_adapt_fn(prior: "Prior", adapt_cfg: AdaptConfig):
                             if not keep or p.grad is None:
                                 p.grad = torch.zeros_like(p)
                     opt.step()
+                    count("apnp.adam_steps")
         net.zero_grad(set_to_none=True)
 
     return adapt

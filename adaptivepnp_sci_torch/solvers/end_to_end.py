@@ -30,6 +30,7 @@ from adaptivepnp_sci_torch.solvers.two_stage_admm import (
     on_frames,
     run_admm,
 )
+from adaptivepnp_sci_torch.utils.profiling import annotate
 
 
 class EndToEndResult(NamedTuple):
@@ -46,6 +47,7 @@ class EndToEndResult(NamedTuple):
     resid_trace: Tensor | None = None
 
 
+@annotate("apnp.solve")
 def reconstruct_single_dispatch(
     y: np.ndarray | Tensor,
     phi: np.ndarray | Tensor,

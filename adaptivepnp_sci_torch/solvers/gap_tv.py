@@ -22,6 +22,7 @@ import torch
 from torch import Tensor
 
 from adaptivepnp_sci_torch.ops import bayer, cuda_kernels, metrics, physics
+from adaptivepnp_sci_torch.utils.profiling import annotate
 
 if TYPE_CHECKING:
     from adaptivepnp_sci_torch.adapt.online import FrameShard
@@ -48,6 +49,7 @@ class GapTVResult(NamedTuple):
     psnr_trace: Tensor   # per-iteration PSNR vs orig (0 if orig not given)
 
 
+@annotate("apnp.warmstart")
 def _gap_tv_packed(y: Tensor, phi: Tensor, x0: Tensor, orig: Tensor | None,
                    config: GapTVConfig, frames: "FrameShard | None" = None
                    ) -> tuple[Tensor, Tensor]:
@@ -83,6 +85,7 @@ def as_f32(a: np.ndarray | Tensor, device: torch.device | str) -> Tensor:
     return torch.as_tensor(a, dtype=torch.float32, device=device)
 
 
+@annotate("apnp.solve")
 def gap_tv(
     y_bayer: np.ndarray | Tensor,
     phi_bayer: np.ndarray | Tensor,

@@ -77,6 +77,7 @@ from adaptivepnp_sci_torch.solvers.priors import (
     module_copy,
     working_copy,
 )
+from adaptivepnp_sci_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -441,17 +442,18 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         if config.select_best:
             consider(cand0_resid(x0), x0)
         for _ in range(total):
-            x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha, frames,
-                                           config.use_kernels)
-            xb = x + b / rho
-            theta = cuda_kernels.tv_chambolle_fused(xb, weight=config.tv_weight,
-                                                    max_iter=config.tv_iters,
-                                                    use_kernels=config.use_kernels)
-            theta = torch.clamp(theta, 0.0, 1.0)
-            b = b + (x - theta)
-            if config.select_best:
-                consider(resid(theta), theta)
-            trace_psnr(theta)
+            with annotate("apnp.admm.iter"):
+                x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha, frames,
+                                               config.use_kernels)
+                xb = x + b / rho
+                theta = cuda_kernels.tv_chambolle_fused(xb, weight=config.tv_weight,
+                                                        max_iter=config.tv_iters,
+                                                        use_kernels=config.use_kernels)
+                theta = torch.clamp(theta, 0.0, 1.0)
+                b = b + (x - theta)
+                if config.select_best:
+                    consider(resid(theta), theta)
+                trace_psnr(theta)
         if config.select_best:
             theta = best[1]
         zero_rgb = torch.zeros((n_items, n_frames, h, w, 3), dtype=torch.float32, device=dev)
@@ -480,37 +482,40 @@ def run_admm(config: ADMMConfig, prior: Prior | None, net: nn.Module | None,
         # demosaicker
         consider(cand0_resid(x0), x0, _per_item(dm_fn, bayer.unpack(x0)))
     for k in range(total):
-        sigma = sigmas[k]
-        x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha, frames,
-                                       config.use_kernels)
-        xb_full = bayer.unpack(x + b / rho)  # (N, B, H, W)
-        if dm is not None:
-            dm.update(xb_full, shard)
-            x_rgb = _per_item(dm.demosaic, xb_full)
-        elif config.closed_form_demosaic and k > 0:
-            num = (rho * bayer.embed_rgb(bayer.unpack(x)) + bayer.embed_rgb(bayer.unpack(b))
-                   + tau * xhat + w_dual)
-            x_rgb = num / (rho * cfa + tau)
-            if config.denoiser == "ffdnet":
-                x_rgb = torch.clamp(x_rgb, 0.0, 1.0)
-        else:
-            x_rgb = _per_item(dm_fn, xb_full)
-        x_rgb_w = x_rgb - w_dual / tau
-        if adapt is not None and mask[k]:
-            adapt(net, x_rgb_w, sigma, y_p, phi_p, y_full, phi_full, generator, opt, shard,
-                  frames)
-        xhat = _per_item(lambda rgb: prior.apply(net, rgb, sigma), x_rgb_w)
-        if relax is not None:
-            xhat = x_rgb_w + relax[k] * (xhat - x_rgb_w)
-        theta_pre = bayer.rggb_subsample(xhat)
-        theta = torch.clamp(theta_pre, 0.0, 1.0)
-        # faithful aliasing: at k = 0 the dual sees the pre-clip theta
-        x_for_dual = theta_pre if config.faithful_aliasing and k == 0 else x
-        b = b + (x_for_dual - theta)
-        w_dual = w_dual + (x_rgb - xhat)
-        if config.select_best:
-            consider(resid(theta), theta, xhat)
-        trace_psnr(theta)
+        with annotate("apnp.admm.iter"):
+            sigma = sigmas[k]
+            x = cuda_kernels.admm_x_update(theta, b, y_p, phi_p, phi_s, rho, alpha, frames,
+                                           config.use_kernels)
+            xb_full = bayer.unpack(x + b / rho)  # (N, B, H, W)
+            with annotate("apnp.demosaic"):
+                if dm is not None:
+                    dm.update(xb_full, shard)
+                    x_rgb = _per_item(dm.demosaic, xb_full)
+                elif config.closed_form_demosaic and k > 0:
+                    num = (rho * bayer.embed_rgb(bayer.unpack(x))
+                           + bayer.embed_rgb(bayer.unpack(b)) + tau * xhat + w_dual)
+                    x_rgb = num / (rho * cfa + tau)
+                    if config.denoiser == "ffdnet":
+                        x_rgb = torch.clamp(x_rgb, 0.0, 1.0)
+                else:
+                    x_rgb = _per_item(dm_fn, xb_full)
+            x_rgb_w = x_rgb - w_dual / tau
+            if adapt is not None and mask[k]:
+                adapt(net, x_rgb_w, sigma, y_p, phi_p, y_full, phi_full, generator, opt, shard,
+                      frames)
+            with annotate("apnp.prior"):
+                xhat = _per_item(lambda rgb: prior.apply(net, rgb, sigma), x_rgb_w)
+            if relax is not None:
+                xhat = x_rgb_w + relax[k] * (xhat - x_rgb_w)
+            theta_pre = bayer.rggb_subsample(xhat)
+            theta = torch.clamp(theta_pre, 0.0, 1.0)
+            # faithful aliasing: at k = 0 the dual sees the pre-clip theta
+            x_for_dual = theta_pre if config.faithful_aliasing and k == 0 else x
+            b = b + (x_for_dual - theta)
+            w_dual = w_dual + (x_rgb - xhat)
+            if config.select_best:
+                consider(resid(theta), theta, xhat)
+            trace_psnr(theta)
     if config.select_best:
         _, theta, xhat = best
     return theta, xhat, *finish()
@@ -564,6 +569,7 @@ class SolveState:
         return variables, opt_state, self.dm.net.state_dict(), self.dm.opt.state_dict()
 
 
+@annotate("apnp.solve")
 def two_stage_admm(
     y_bayer: np.ndarray | Tensor,
     phi_bayer: np.ndarray | Tensor,

@@ -1,18 +1,16 @@
 """Logging and timing helpers (port of ``adaptivepnp_sci_tpu.utils.logging``).
 
 One standard logging setup under the ``adaptivepnp_sci_torch`` logger, an
-optional file handler, the commit hash for run provenance, and a host-clock
-timer that waits for the CUDA device of the tensors it times (kernel launches
-return before the device finishes, so a span without that wait measures the
-enqueue).
+optional file handler, the commit hash for run provenance, and the CUDA
+devices of a result's tensors, which ``utils.profiling.StepTimer`` waits for
+(kernel launches return before the device finishes, so a span without that
+wait measures the enqueue).
 """
 
 from __future__ import annotations
 
 import logging
-import time
-from contextlib import contextmanager
-from typing import Any, Iterator
+from typing import Any
 
 import torch
 
@@ -62,18 +60,3 @@ def _cuda_devices(obj: Any) -> set[torch.device]:
         return set().union(*(_cuda_devices(o) for o in obj)) if obj else set()
     return set()
 
-
-@contextmanager
-def device_timer(label: str, result_holder: dict | None = None) -> Iterator[dict]:
-    """Host-clock span of a device computation. The caller puts the tensors
-    to wait for in ``holder['out']`` before leaving the context; the CUDA
-    devices they lie on are synchronised before the clock stops. The span is
-    logged and stored in ``holder['seconds']``."""
-    t0 = time.perf_counter()
-    holder = result_holder if result_holder is not None else {}
-    yield holder
-    for dev in _cuda_devices(holder.get("out")):
-        torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
-    get_logger().info("%s: %.3fs", label, dt)
-    holder["seconds"] = dt

@@ -190,6 +190,180 @@ def test_step_timer_records_each_step():
     assert len(timer.history) == 3 and 0 < timer.best <= timer.mean
 
 
+@pytest.fixture
+def recorder(monkeypatch):
+    """A fresh span store for the test, so that no other test's spans show."""
+    rec = profiling._Recorder()
+    monkeypatch.setattr(profiling, "_RECORDER", rec)
+    return rec
+
+
+def _cpu_profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_spans_are_a_shared_noop_with_the_profiler_off(recorder):
+    @profiling.annotate("off.decorated")
+    def step():
+        profiling.count("off.counter")
+        return 1
+
+    span = profiling.annotate("off.span")
+    assert span is profiling.annotate("off.span")
+    with span:
+        assert step() == 1
+    profiling.count("off.counter")
+    assert profiling.spans() == [] and profiling.dropped() == 0
+
+
+def test_spans_nest_with_parents_requests_and_counters(recorder, tmp_path):
+    @profiling.annotate("t.decorated")
+    def step():
+        profiling.count("t.steps")
+        return torch.ones(4).sum()
+
+    with _cpu_profile() as prof:
+        with profiling.annotate("t.request"):
+            profiling.count("t.calls", 2)
+            with profiling.annotate("t.inner"):
+                with profiling.annotate("t.leaf"):
+                    step()
+            step()
+        with profiling.annotate("t.request"):
+            pass
+    got = profiling.spans()
+    assert [(s.name, s.parent) for s in got] == [
+        ("t.request", -1), ("t.inner", got[0].index), ("t.leaf", got[1].index),
+        ("t.decorated", got[2].index), ("t.decorated", got[0].index), ("t.request", -1)]
+    assert len({s.index for s in got}) == 6
+    assert {s.request for s in got[:5]} == {got[0].request} != {got[5].request}
+    assert got[0].counters == {"t.calls": 2, "t.steps": 2} and got[5].counters == {}
+    assert all(s.device_ms is None for s in got)
+    assert all(s.start_ns <= c.start_ns and c.end_ns <= s.end_ns
+               for s in got for c in got if c.parent == s.index)
+
+    # the same ranges in kineto's events, within 1 ms, on the host
+    from torch.autograd import DeviceType
+
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.name().startswith("t.")), key=lambda e: e.start_ns())
+    assert [e.name() for e in events] == [s.name for s in got]
+    for e, s in zip(events, got):
+        assert e.device_type() == DeviceType.CPU
+        assert abs(e.start_ns() - s.start_ns) < 1e6
+        assert abs(e.start_ns() + e.duration_ns() - s.end_ns) < 1e6
+
+    # host operators in the Chrome trace, not user annotations
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    cats = {e.get("cat") for e in json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+            if e.get("name", "").startswith("t.")}
+    assert cats == {"cpu_op"}
+
+
+def test_span_store_keeps_the_newest_and_counts_the_dropped(monkeypatch):
+    monkeypatch.setattr(profiling, "MAX_SPANS", 3)
+    monkeypatch.setattr(profiling, "_RECORDER", profiling._Recorder())
+    with _cpu_profile():
+        for i in range(5):
+            with profiling.annotate(f"cap.{i}"):
+                pass
+    assert [s.name for s in profiling.spans()] == ["cap.2", "cap.3", "cap.4"]
+    assert profiling.dropped() == 2
+
+
+def test_span_events_are_read_in_order_and_recorded_again(recorder, monkeypatch):
+    class Event:
+        """A stand-in for a CUDA timing event at time ``t``, reached or not."""
+
+        def __init__(self, t=0.0, reached=True):
+            self.t, self.reached = t, reached
+
+        def query(self):
+            return self.reached
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+
+    monkeypatch.setattr(torch.cuda, "Event", lambda enable_timing: Event())
+    closed = []
+    for i, reached in enumerate([True, True, False, True]):
+        span = profiling.Span(i, "ev", -1, i)
+        span._events = (Event(10.0 * i), Event(10.0 * i + i + 1, reached))
+        recorder.timed.append(span)
+        closed.append(span)
+    # taken back in the order the spans closed, up to the first the device
+    # has not reached
+    taken = recorder.event()
+    assert [s.device_ms for s in closed] == [1.0, 2.0, None, None]
+    assert list(recorder.timed) == closed[2:] and len(recorder.free) == 3
+    assert taken.t in (0.0, 1.0, 10.0, 12.0)
+    assert {recorder.event().t for _ in range(3)} | {taken.t} == {0.0, 1.0, 10.0, 12.0}
+    # none free and none reached: a new event
+    assert recorder.event().t == 0.0 and closed[2].device_ms is None
+    closed[2]._events[1].reached = True
+    recorder.read(1, wait=False)
+    assert closed[2].device_ms == 3.0 and list(recorder.timed) == closed[3:]
+
+
+def _small_solve():
+    from adaptivepnp_sci_torch.adapt.online import AdaptConfig, make_schedule
+    from adaptivepnp_sci_torch.data.synthetic import make_scene
+    from adaptivepnp_sci_torch.models.ffdnet import FFDNet
+    from adaptivepnp_sci_torch.solvers.end_to_end import reconstruct_single_dispatch
+    from adaptivepnp_sci_torch.solvers.gap_tv import GapTVConfig
+    from adaptivepnp_sci_torch.solvers.priors import ffdnet_prior
+    from adaptivepnp_sci_torch.solvers.two_stage_admm import ADMMConfig
+
+    sc = make_scene(b=4, h=32, w=32, seed=3)
+    cfg = ADMMConfig(sigma=(25 / 255, 12 / 255), iters=(4, 3),
+                     adapt=AdaptConfig(interval_iter=2, update_per_iter=2))
+    torch.manual_seed(0)
+    prior = ffdnet_prior(FFDNet(nc=8, nb=3))
+    params = {k: v.clone() for k, v in prior.model.state_dict().items()}
+
+    def solve():
+        return reconstruct_single_dispatch(sc.meas, sc.mask, GapTVConfig(iters=3), cfg, prior,
+                                           params, device="cpu")
+
+    _, mask = make_schedule(cfg.sigma, cfg.iters, cfg.adapt)
+    return solve, sc, int(mask.sum()), cfg
+
+
+def test_reconstruction_records_its_spans_and_reads_the_same(recorder):
+    from adaptivepnp_sci_torch.solvers.gap_tv import GapTVConfig, gap_tv
+
+    solve, sc, triggers, cfg = _small_solve()
+    plain = solve()
+    assert profiling.spans() == []
+    with _cpu_profile():
+        traced = solve()
+    got = profiling.spans()
+    names = [s.name for s in got]
+    iters = sum(cfg.iters)
+    assert triggers > 0
+    assert {n: names.count(n) for n in set(names)} == {
+        "apnp.solve": 1, "apnp.warmstart": 1, "apnp.admm.iter": iters, "apnp.demosaic": iters,
+        "apnp.prior": iters, "apnp.adapt": triggers}
+    solve_span = got[0]
+    assert solve_span.name == "apnp.solve" and solve_span.parent == -1
+    assert {s.request for s in got} == {solve_span.request}
+    assert solve_span.counters == {"apnp.adam_steps": triggers * cfg.adapt.update_per_iter}
+    by_index = {s.index: s for s in got}
+    assert all(by_index[s.parent].name == "apnp.solve"
+               for s in got if s.name in ("apnp.warmstart", "apnp.admm.iter"))
+    assert all(by_index[s.parent].name == "apnp.admm.iter"
+               for s in got if s.name in ("apnp.demosaic", "apnp.prior", "apnp.adapt"))
+    # the spans change nothing: bit for bit the untraced result
+    assert torch.equal(plain.x_bayer, traced.x_bayer) and torch.equal(plain.x_rgb, traced.x_rgb)
+    assert all(torch.equal(plain.variables[k], traced.variables[k]) for k in plain.variables)
+
+    with _cpu_profile():
+        gap_tv(sc.meas, sc.mask, GapTVConfig(iters=3), device="cpu")
+    assert [s.name for s in profiling.spans()[len(got):]] == ["apnp.solve", "apnp.warmstart"]
+
+
 def _profiled_collectives(rank, init, out_dir):
     """One of 2 gloo ranks: collectives and a convolution under the profiler,
     then ``collective_profile``'s reading and ``key_averages``' sums of the

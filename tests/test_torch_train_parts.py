@@ -438,8 +438,6 @@ def test_logging_helpers(tmp_path):
     path = tmp_path / "log.txt"
     tlogging.add_file_handler(str(path))
     try:
-        with tlogging.device_timer("span") as holder:
-            holder["out"] = [torch.ones(3) * 2, {"x": torch.zeros(1)}]
         log.info("hello %d", 7)
     finally:
         root = logging.getLogger("adaptivepnp_sci_torch")
@@ -447,8 +445,7 @@ def test_logging_helpers(tmp_path):
             if isinstance(h, logging.FileHandler):
                 root.removeHandler(h)
                 h.close()
-    assert holder["seconds"] >= 0
     text = path.read_text()
-    assert "span:" in text and "hello 7" in text
+    assert "hello 7" in text
     rev = tlogging.git_revision(str(Path(__file__).parent))
     assert rev == "unknown" or len(rev) == 40
