@@ -35,8 +35,20 @@
 // divisions per iteration, which the plain version's bits require.
 //
 // Planes whose strips do not fit in shared memory at the largest portable
-// cluster (8 blocks) take tv_chambolle_kernel, the first design: one block
-// of 1024 threads per plane strides over the plane, with p_y, p_x and out in
+// cluster (8 blocks) take tv_chambolle_grid_kernel when the whole card's
+// shared memory holds a plane's strips (up to about 1500x1500): a software
+// cluster that spans the card. One cooperative launch puts every block on
+// the card at once, in groups of as many blocks as a plane has strips (128
+// strips of 8 rows at 1024x1024, two blocks an SM: 2 groups, 2 planes in
+// flight); a group takes its planes one after another, each block keeping
+// its strip's state in shared memory while the group is on a plane. The halo
+// rows and the strips' sums pass through a small buffer in device memory
+// that L2 holds, and the group's blocks meet at a counter in device memory
+// (twice an iteration, as cluster.sync() is used above); groups never wait
+// on one another.
+//
+// Larger planes take tv_chambolle_kernel, the first design: one block of
+// 1024 threads per plane strides over the plane, with p_y, p_x and out in
 // device scratch the wrapper allocates (they stream through L2), block
 // barriers between the phases and thread 0 taking the decision. The wrapper
 // chooses by the plane's shape before the launch
@@ -327,6 +339,207 @@ tv_chambolle_cluster_kernel(const float* __restrict__ img_all, float* __restrict
   if (rank == 0 && tid == 0) iters[plane] = ran;
 }
 
+// Barrier of the `blocks` blocks of one group of the grid kernel: each
+// arrives at the group's counter in device memory after a fence that
+// publishes what its threads wrote, and waits until all have arrived.
+// `target` counts the group's arrivals so far (the counter is zeroed before
+// the launch); every thread keeps the same copy. A wait far longer than any
+// phase (2^26 polls, tens of seconds) means a block of the group is not running:
+// the kernel traps, and the launch fails, rather than hang the card.
+__device__ __forceinline__ void group_sync(unsigned int* counter, unsigned int& target,
+                                           unsigned int blocks) {
+  __syncthreads();
+  target += blocks;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    unsigned int seen, polls = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(counter) : "memory");
+      if (++polls == (1u << 26)) __trap();
+    } while (static_cast<int>(seen - target) < 0);
+  }
+  __syncthreads();
+}
+
+// The grid design: gridDim.x / strips groups of `strips` blocks, all resident
+// at once (a cooperative launch). Block r of group g holds strip r, rows
+// r*strip_h .. of planes g, g + groups, g + 2*groups, ..., one after another;
+// its strip's out, p_y and p_x stay in shared memory while the group is on a
+// plane. The halo rows pass through device memory (L2): halo_py[b] is the
+// last row of p_y of strip b, halo_out[b] the first row of out of strip b+1,
+// for the strips-1 boundaries b of each group; each strip's two sums go to
+// sums[g*strips + r]. Stores to them bypass L1 (__stcg) and so do the loads
+// (__ldcg): L1 is not coherent across SMs. Same phases and arithmetic as the
+// cluster kernel.
+__global__ void __launch_bounds__(kClusterThreads, 2)
+tv_chambolle_grid_kernel(const float* __restrict__ img_all, float* __restrict__ out_all,
+                         int* __restrict__ iters, float* __restrict__ halo_py,
+                         float* __restrict__ halo_out, double2* __restrict__ sums,
+                         unsigned int* __restrict__ counters, int n_planes, int h, int w,
+                         int strips, int strip_h, float weight, float tau_over_weight, float eps,
+                         int max_iter) {
+  const int groups = static_cast<int>(gridDim.x) / strips;
+  const int group = static_cast<int>(blockIdx.x) / strips;
+  const int rank = static_cast<int>(blockIdx.x) % strips;  // this block's strip
+  const long long size = static_cast<long long>(h) * w;
+  const float tau = 0.25f;
+
+  // rows r0 .. r1-1 of every plane; only the last strip may be short
+  const int r0 = rank * strip_h, r1 = min(r0 + strip_h, h);
+  const int rows = r1 - r0, npix = rows * w;
+  const int tid = static_cast<int>(threadIdx.x);
+
+  extern __shared__ float strip[];
+  float* __restrict__ out_s = strip;
+  float* __restrict__ py_s = strip + strip_h * w;
+  float* __restrict__ px_s = strip + 2 * strip_h * w;
+  __shared__ double red[2][kClusterWarps];
+  __shared__ int stop;
+
+  // this group's halo rows: read p_y above and out below, publish out's first
+  // row (for the strip above) and p_y's last row (for the strip below)
+  const long long halo_base = static_cast<long long>(group) * (strips - 1) * w;
+  const float* py_up = rank > 0 ? halo_py + halo_base + static_cast<long long>(rank - 1) * w
+                                : nullptr;
+  float* out_pub = rank > 0 ? halo_out + halo_base + static_cast<long long>(rank - 1) * w
+                            : nullptr;
+  float* py_pub = rank + 1 < strips ? halo_py + halo_base + static_cast<long long>(rank) * w
+                                    : nullptr;
+  const float* out_down = rank + 1 < strips
+                              ? halo_out + halo_base + static_cast<long long>(rank) * w
+                              : nullptr;
+  double2* group_sums = sums + static_cast<long long>(group) * strips;
+  unsigned int* counter = counters + 32 * group;  // one 128-byte line a group
+  unsigned int target = 0;
+
+  const int row_0 = tid / w, col_0 = tid % w;
+  const int d_row = kClusterThreads / w, d_col = kClusterThreads % w;
+  auto advance = [&](int& row, int& col) {
+    row += d_row;
+    col += d_col;
+    if (col >= w) {
+      col -= w;
+      ++row;
+    }
+  };
+
+  for (int plane = group; plane < n_planes; plane += groups) {
+    const long long base = plane * size + static_cast<long long>(r0) * w;
+    const float* __restrict__ img = img_all + base;
+    double e_init = 0.0, e_prev = 0.0;  // read by thread 0 only
+    int ran = 0;
+
+    for (int i = 0; i < max_iter; ++i) {
+      // phase 1: out = img + div(p), and sum d^2; img comes from device
+      // memory once and from L2 after that
+      double dd = 0.0;
+      {
+        int row = row_0, col = col_0;
+        for (int k0 = tid; k0 < npix; k0 += kBatch * kClusterThreads) {
+          float im[kBatch], p[kBatch], up[kBatch], left[kBatch];
+          bool has_up[kBatch], has_left[kBatch], first_row[kBatch];
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const int k = k0 + u * kClusterThreads;
+            has_up[u] = has_left[u] = false;
+            first_row[u] = row == 0;
+            if (k < npix) {
+              im[u] = __ldg(img + k);
+              if (i > 0) {
+                p[u] = py_s[k] + px_s[k];
+                has_up[u] = r0 + row > 0;
+                has_left[u] = col > 0;
+                if (has_up[u]) up[u] = row > 0 ? py_s[k - w] : __ldcg(py_up + col);
+                if (has_left[u]) left[u] = px_s[k - 1];
+              }
+            }
+            advance(row, col);
+          }
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const int k = k0 + u * kClusterThreads;
+            if (k < npix) {
+              float d = 0.f;
+              if (i > 0) {
+                d = -p[u];
+                if (has_up[u]) d += up[u];
+                if (has_left[u]) d += left[u];
+              }
+              const float o = im[u] + d;
+              out_s[k] = o;
+              if (first_row[u] && out_pub) __stcg(out_pub + k, o);
+              dd += static_cast<double>(d) * static_cast<double>(d);
+            }
+          }
+        }
+      }
+      group_sync(counter, target, strips);  // out is written in every strip
+
+      // phase 2: forward differences of out, their norm, and the dual update
+      double nn = 0.0;
+      {
+        int row = row_0, col = col_0;
+        for (int k = tid; k < npix; k += kClusterThreads) {
+          const float o = out_s[k];
+          float gy = 0.f;
+          if (r0 + row < h - 1) gy = (row < rows - 1 ? out_s[k + w] : __ldcg(out_down + col)) - o;
+          const float gx = col < w - 1 ? out_s[k + 1] - o : 0.f;
+          const float norm = sqrtf(gy * gy + gx * gx);
+          const float coef = norm * tau_over_weight + 1.f;
+          const float pyk = i > 0 ? py_s[k] : 0.f;
+          const float pxk = i > 0 ? px_s[k] : 0.f;
+          const float py_new = (pyk - tau * gy) / coef;
+          py_s[k] = py_new;
+          px_s[k] = (pxk - tau * gx) / coef;
+          if (row == rows - 1 && py_pub) __stcg(py_pub + col, py_new);
+          nn += static_cast<double>(norm);
+          advance(row, col);
+        }
+      }
+
+      // phase 3: the strip's sums go to its slot; after the barrier warp 0 of
+      // every block adds the group's slots in one fixed order (a strided sum
+      // a lane, then a butterfly, whose lanes all end with the same bits) and
+      // decides for the plane
+      block_sum2<kClusterWarps>(dd, nn, red);
+      if (tid == 0) __stcg(group_sums + rank, make_double2(dd, nn));
+      group_sync(counter, target, strips);  // p is written, the sums have arrived
+      if (tid < 32) {
+        double sum_dd = 0.0, sum_nn = 0.0;
+        for (int r = tid; r < strips; r += 32) {
+          const double2 s = __ldcg(group_sums + r);
+          sum_dd += s.x;
+          sum_nn += s.y;
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+          sum_dd += __shfl_xor_sync(0xffffffffu, sum_dd, o);
+          sum_nn += __shfl_xor_sync(0xffffffffu, sum_nn, o);
+        }
+        if (tid == 0) {
+          const double e =
+              (sum_dd + static_cast<double>(weight) * sum_nn) / static_cast<double>(size);
+          int done = 0;
+          if (i == 0) {
+            e_init = e;
+          } else {
+            done = fabs(e_prev - e) < static_cast<double>(eps) * e_init;
+          }
+          e_prev = e;
+          stop = done;
+        }
+      }
+      __syncthreads();
+      ran = i + 1;
+      if (stop) break;
+    }
+
+    float* __restrict__ out = out_all + base;
+    for (int k = tid; k < npix; k += kClusterThreads) out[k] = out_s[k];
+    if (rank == 0 && tid == 0) iters[plane] = ran;
+  }
+}
+
 size_t strip_bytes(int strip_h, int w) { return 3 * size_t(strip_h) * w * sizeof(float); }
 
 cudaLaunchConfig_t cluster_config(int n_planes, int cluster, size_t smem, cudaStream_t stream,
@@ -398,4 +611,56 @@ extern "C" int apnp_tv_cluster_occupancy(int cluster, int strip_h, int w, int* c
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, tv_chambolle_cluster_kernel, kClusterThreads, smem));
+}
+
+// The grid design: `groups` groups of `strips` blocks in one cooperative
+// launch, block r of a group holding rows r*strip_h .. of its planes in
+// 3*strip_h*w*4 bytes of shared memory; strips*strip_h >= h > (strips-1)*strip_h.
+// Device workspace the caller allocates: counters, groups*32 unsigned ints
+// (zeroed here, on the stream, before the launch); sums, groups*strips
+// double2; halo, 2*groups*(strips-1)*w floats (p_y rows, then out rows).
+// Every block has to be resident at once: groups*strips at most
+// apnp_tv_grid_occupancy's blocks per SM times the SMs, or the launch fails.
+// Returns the cudaError_t of the memset or the launch.
+extern "C" int apnp_tv_chambolle_grid(const float* img, float* out, int* iters,
+                                      unsigned int* counters, double* sums, float* halo,
+                                      int n_planes, int h, int w, int strips, int strip_h,
+                                      int groups, float weight, float tau_over_weight, float eps,
+                                      int max_iter, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = strip_bytes(strip_h, w);
+  cudaError_t err = cudaFuncSetAttribute(tv_chambolle_grid_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(counters, 0, size_t(groups) * 32 * sizeof(unsigned int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * strips);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  float* halo_out = halo + size_t(groups) * (strips - 1) * w;
+  err = cudaLaunchKernelEx(&cfg, tv_chambolle_grid_kernel, img, out, iters, halo, halo_out,
+                           reinterpret_cast<double2*>(sums), counters, n_planes, h, w, strips,
+                           strip_h, weight, tau_over_weight, eps, max_iter);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many blocks of the grid kernel with strips of strip_h x w share an SM;
+// returns a cudaError_t.
+extern "C" int apnp_tv_grid_occupancy(int strip_h, int w, int* blocks_per_sm) {
+  const size_t smem = strip_bytes(strip_h, w);
+  cudaError_t err = cudaFuncSetAttribute(tv_chambolle_grid_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, tv_chambolle_grid_kernel, kClusterThreads, smem));
 }

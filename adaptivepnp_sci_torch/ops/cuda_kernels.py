@@ -7,11 +7,13 @@ Two kernels carry the flagship path, with the JAX package's wrapper names:
   (:func:`admm_x_update`, :func:`gap_x_update`), and its split form of two
   launches for a solve whose frames are spread over ranks (``frame=``);
 * ``csrc/tv_chambolle.cu``: the channel-wise Chambolle TV prox with the
-  per-plane early stop (:func:`tv_chambolle_fused`), in two designs: a
+  per-plane early stop (:func:`tv_chambolle_fused`), in three designs: a
   thread-block cluster per plane with the state in shared memory
-  (``"cluster"``), and one block per plane with the state in device scratch
-  (``"block"``) for planes too large for that; :func:`tv_plan` chooses by
-  the plane's shape.
+  (``"cluster"``); for planes too large for a cluster, groups of blocks
+  that span the card, one block a strip, the state in shared memory and
+  the halo rows in device memory (``"grid"``); and one block per plane with
+  the state in device scratch (``"block"``) for planes too large for the
+  card's shared memory; :func:`tv_plan` chooses by the plane's shape.
 
 A third carries the bf16 mode of the FastDVDnet prior, and replaces the
 fused kernel of ``scripts/ab_pallas_convpair.py``: FastDVDnet's CvBlock, two
@@ -70,6 +72,8 @@ NVCC_FLAGS = (
 
 #: kernel launches since the last :func:`reset_launches`, per kernel
 launches = {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
+#: the TV kernel's launches once more, by design
+tv_design_launches = {"cluster": 0, "grid": 0, "block": 0}
 #: the conv pair's launches once more, by ``(C, H, W)`` of the activation
 convpair_launches: dict[tuple[int, int, int], int] = {}
 
@@ -79,8 +83,9 @@ build_log: dict[str, str] = {}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, tv_design_launches):
+        for k in counts:
+            counts[k] = 0
     convpair_launches.clear()
 
 
@@ -138,7 +143,9 @@ def _signatures() -> dict[str, dict[str, list]]:
         "tv_chambolle": {
             "apnp_tv_chambolle": [p, p, p, p, p, i, i, i, f, f, f, i, p],
             "apnp_tv_chambolle_cluster": [p, p, p, i, i, i, i, i, f, f, f, i, p],
-            "apnp_tv_cluster_occupancy": [i, i, i, p, p]},
+            "apnp_tv_cluster_occupancy": [i, i, i, p, p],
+            "apnp_tv_chambolle_grid": [p, p, p, p, p, p, i, i, i, i, i, i, f, f, f, i, p],
+            "apnp_tv_grid_occupancy": [i, i, p]},
         "convpair": {"apnp_convpair": pair},
         "convpair_wgmma": {"apnp_convpair_wgmma": pair},
     }
@@ -297,21 +304,47 @@ TV_STRIP_SMEM_BYTES = 227 * 1024 - 2048
 TV_STRIP_BYTES_PER_PIXEL = 12
 TV_STRIP_PIXELS = 9600
 TV_CLUSTER_SIZES = (1, 2, 3, 4, 5, 6, 7, 8)
-TV_DESIGNS = ("cluster", "block")
+#: blocks with strips of at most :data:`TV_STRIP_PIXELS` pixels that an
+#: H100's 132 SMs hold at once, two an SM: the grid design's budget of strips
+TV_GRID_BLOCKS = 264
+TV_DESIGNS = ("cluster", "grid", "block")
+
+
+def tv_grid_strips(h: int, w: int) -> tuple[int, int] | None:
+    """``(strips, strip height)`` of the TV kernel's grid design for
+    ``(h, w)`` planes, or None when a plane's strips do not fit in
+    :data:`TV_GRID_BLOCKS` blocks. Strips hold at most
+    :data:`TV_STRIP_PIXELS` pixels; of those heights the one that keeps the
+    most rows of planes in flight (:data:`TV_GRID_BLOCKS` // strips planes
+    at once, each block taking its strip's rows in turn) is taken, the
+    tallest of equals (1024 x 1024: 128 strips of 8 rows, 2 planes at once;
+    9 rows would take 114 strips and leave 36 blocks idle)."""
+    best = None
+    for strip_h in range(min(h, TV_STRIP_PIXELS // w), 0, -1):
+        strips = -(-h // strip_h)
+        if strips > TV_GRID_BLOCKS:
+            break
+        in_flight = TV_GRID_BLOCKS // strips
+        if best is None or in_flight * best[1] > best[2] * strip_h:
+            best = (strips, strip_h, in_flight)
+    return None if best is None else best[:2]
 
 
 def tv_plan(h: int, w: int) -> tuple[str, int, int]:
-    """``(design, cluster size, strip height)`` of the TV kernel for ``(h, w)``
-    planes, a pure function of the shape.
+    """``(design, blocks a plane, strip height)`` of the TV kernel for
+    ``(h, w)`` planes, a pure function of the shape.
 
-    ``"cluster"``: the plane is cut into ``cluster size`` strips of
+    ``"cluster"``: the plane is cut into ``blocks a plane`` strips of
     ``strip height`` rows (the last ones shorter, or empty), one per block of
     a thread-block cluster, each strip's state in shared memory. The smallest
     cluster whose strips hold at most :data:`TV_STRIP_PIXELS` pixels is
     taken (256 x 256: 7 strips of 37 rows, the last of 34), else 8 blocks if their strips
-    still fit in shared memory. ``"block"``: planes too large for that
-    (512 x 512 and up) run one block per plane with the state in device
-    scratch; cluster size 1, strip height ``h``."""
+    still fit in shared memory. ``"grid"``: planes too large for a cluster
+    whose strips still fit in the card's shared memory (512 x 512 and
+    1024 x 1024 up to about 1500 x 1500) are cut as :func:`tv_grid_strips`
+    says, one block a strip, in groups of blocks that span the card.
+    ``"block"``: larger planes run one block per plane with the state in
+    device scratch; one block a plane, strip height ``h``."""
     if h < 1 or w < 1:
         raise ValueError(f"tv_plan: expected a plane of at least 1 x 1, got {h} x {w}")
     for cluster in TV_CLUSTER_SIZES:
@@ -320,16 +353,42 @@ def tv_plan(h: int, w: int) -> tuple[str, int, int]:
             return "cluster", cluster, strip_h
     if strip_h * w * TV_STRIP_BYTES_PER_PIXEL <= TV_STRIP_SMEM_BYTES:
         return "cluster", cluster, strip_h
+    grid = tv_grid_strips(h, w)
+    if grid is not None:
+        return ("grid",) + grid
     return "block", 1, h
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+
+
+def tv_grid_groups(n: int, h: int, w: int) -> tuple[int, int]:
+    """``(groups, blocks per SM)`` of one grid-design launch over ``n``
+    planes of ``(h, w)``: as many groups of :func:`tv_grid_strips`'s strips
+    as the device holds at once (asked of it for the kernel's strip size),
+    at most ``n``. Raises when the device cannot hold one plane's strips."""
+    strips, strip_h = tv_grid_strips(h, w)
+    per_sm = ctypes.c_int(0)
+    rc = _lib("tv_chambolle").apnp_tv_grid_occupancy(strip_h, w, ctypes.byref(per_sm))
+    _raise_on(rc, "tv_chambolle grid occupancy query")
+    resident = per_sm.value * _sms()
+    if resident < strips:
+        raise RuntimeError(f"tv_chambolle: the device holds {resident} blocks of the grid "
+                           f"design at once, a {h} x {w} plane needs {strips}")
+    return min(n, resident // strips), per_sm.value
 
 
 def tv_sms_used(n: int, h: int, w: int) -> int:
     """SMs that one TV launch over ``n`` planes of ``(h, w)`` keeps busy at
     once, asked of the device for the launch's block and cluster shape."""
     design, cluster, strip_h = tv_plan(h, w)
-    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    sms = _sms()
     if design == "block":
         return min(n, sms)
+    if design == "grid":
+        groups, per_sm = tv_grid_groups(n, h, w)
+        return min(sms, -(-groups * cluster // per_sm))
     clusters, per_sm = ctypes.c_int(0), ctypes.c_int(0)
     rc = _lib("tv_chambolle").apnp_tv_cluster_occupancy(
         cluster, strip_h, w, ctypes.byref(clusters), ctypes.byref(per_sm))
@@ -337,13 +396,32 @@ def tv_sms_used(n: int, h: int, w: int) -> int:
     return min(sms, -(-min(n, clusters.value) * cluster // per_sm.value))
 
 
+def _tv_grid_launch(lib: ctypes.CDLL, planes: Tensor, out: Tensor, iters: Tensor,
+                    weight: float, eps: float, max_iter: int, stream: int) -> int:
+    """The grid design's launch, with its workspace: a counter a group (one
+    128-byte line each), a pair of double sums a strip, and two halo rows a
+    boundary between strips (under 2 MiB at 32 x 1024^2)."""
+    n, h, w = planes.shape
+    strips, strip_h = tv_grid_strips(h, w)
+    groups, _ = tv_grid_groups(n, h, w)
+    counters, sums = groups * 128, groups * strips * 16
+    halo = 2 * groups * (strips - 1) * w * 4
+    ws = torch.empty(counters + sums + halo, dtype=torch.uint8, device=planes.device)
+    base = ws.data_ptr()
+    return lib.apnp_tv_chambolle_grid(
+        planes.data_ptr(), out.data_ptr(), iters.data_ptr(), base, base + counters,
+        base + counters + sums, n, h, w, strips, strip_h, groups, weight, 0.25 / weight, eps,
+        max_iter, stream)
+
+
 def tv_chambolle_planes_cuda(planes: Tensor, weight: float = 0.1, eps: float = 2.0e-4,
                              max_iter: int = 5, design: str | None = None
                              ) -> tuple[Tensor, Tensor]:
     """The TV kernel on ``(N, H, W)`` CUDA planes; returns ``(out, iterations)``
     like :func:`tv.tv_chambolle_planes`. ``design`` is :func:`tv_plan`'s choice
-    for the shape unless given: ``"block"`` runs any shape, ``"cluster"``
-    raises for a plane that :func:`tv_plan` sends to ``"block"``."""
+    for the shape unless given: ``"block"`` runs any shape, ``"grid"`` any
+    shape :func:`tv_grid_strips` cuts, and ``"cluster"`` raises for a plane
+    that :func:`tv_plan` does not send to it."""
     if planes.dim() != 3:
         raise ValueError(f"tv_chambolle: expected (N, H, W), got {tuple(planes.shape)}")
     _check("tv_chambolle input", planes, tuple(planes.shape), planes.device)
@@ -355,6 +433,8 @@ def tv_chambolle_planes_cuda(planes: Tensor, weight: float = 0.1, eps: float = 2
         raise ValueError(f"tv_chambolle: design must be one of {TV_DESIGNS}, got {design!r}")
     if design == "cluster" and planned != "cluster":
         raise ValueError(f"tv_chambolle: a {h} x {w} plane does not fit the cluster design")
+    if design == "grid" and tv_grid_strips(h, w) is None:
+        raise ValueError(f"tv_chambolle: a {h} x {w} plane does not fit the grid design")
     out = torch.empty_like(planes)
     iters = torch.empty(n, dtype=torch.int32, device=planes.device)
     lib = _lib("tv_chambolle")
@@ -364,6 +444,8 @@ def tv_chambolle_planes_cuda(planes: Tensor, weight: float = 0.1, eps: float = 2
             rc = lib.apnp_tv_chambolle_cluster(
                 planes.data_ptr(), out.data_ptr(), iters.data_ptr(), n, h, w, cluster,
                 strip_h, weight, 0.25 / weight, eps, max_iter, stream)
+        elif design == "grid":
+            rc = _tv_grid_launch(lib, planes, out, iters, weight, eps, max_iter, stream)
         else:
             py = torch.empty_like(planes)
             px = torch.empty_like(planes)
@@ -372,6 +454,7 @@ def tv_chambolle_planes_cuda(planes: Tensor, weight: float = 0.1, eps: float = 2
                 iters.data_ptr(), n, h, w, weight, 0.25 / weight, eps, max_iter, stream)
     _raise_on(rc, "tv_chambolle launch")
     launches["tv_chambolle"] += 1
+    tv_design_launches[design] += 1
     return out, iters
 
 
@@ -381,8 +464,10 @@ def tv_chambolle_fused(x: Tensor, weight: float = 0.1, eps: float = 2.0e-4,
     CUDA tensors, :func:`tv.tv_chambolle_multichannel` for CPU tensors. Any
     plane size runs on a kernel: planes whose strips fit in shared memory
     (up to 8 strips of 19,200 pixels, e.g. 256 x 256 and 384 x 384) on the
-    cluster design, larger ones (512 x 512 and up) on the one-block-per-plane
-    design; see :func:`tv_plan`. ``use_kernels``: see :func:`runs_kernel`."""
+    cluster design, larger ones whose strips fit in the card's shared memory
+    (512 x 512 and 1024 x 1024) on the grid design, larger still on the
+    one-block-per-plane design; see :func:`tv_plan`. ``use_kernels``: see
+    :func:`runs_kernel`."""
     if not runs_kernel(x, use_kernels):
         return tv.tv_chambolle_multichannel(x, weight, eps, max_iter)
     _check("tv_chambolle input", x, tuple(x.shape), x.device)

@@ -1119,10 +1119,12 @@ def main(argv: list[str]) -> int:
                     f"k2: kernel disagrees with plain (max abs {err})")
         require(flips == 0, f"k2: {flips} of {planes} stop decisions differ from the plain version")
         real = inputs[1]
-        # the one-block-per-plane design on the same planes, and on planes that
-        # only it takes; the cluster design twice on one input (no atomics)
+        # the one-block-per-plane design on the same planes, and the grid design
+        # on planes too large for a cluster; the cluster design twice on one
+        # input (no atomics)
         large = torch.rand(2, 512, 512, generator=g).to(dev)
-        require(cuda_kernels.tv_plan(512, 512)[0] == "block", "k2: 512 x 512 not planned as block")
+        require(cuda_kernels.tv_plan(512, 512) == ("grid", 29, 18),
+                f"k2: 512 x 512 planned as {cuda_kernels.tv_plan(512, 512)}")
         others = {}
         for name, inp, kw in (("block_rand", rand, dict(design="block")),
                               ("block_real", real, dict(design="block")),
@@ -1133,10 +1135,11 @@ def main(argv: list[str]) -> int:
             require(bool(torch.allclose(k_out, p_out, rtol=1e-5, atol=1e-6))
                     and bool(torch.equal(k_it, p_it)), f"k2 {name}: disagrees with plain")
         # the drivers' plane shapes: the 32 packed planes of a 2048^2 warm
-        # start (1024^2, the block design), and the 64 planes of a group of two
-        # 512 tiles with 32 px of overlap (288^2, a cluster of 8 strips of 36)
+        # start (1024^2, the grid design: 128 strips of 8 rows), and the 64
+        # planes of a group of two 512 tiles with 32 px of overlap (288^2, a
+        # cluster of 8 strips of 36)
         driver_shapes = {}
-        for name, shape, want_plan in (("warm_start_1024", (32, 1024, 1024), ("block", 1, 1024)),
+        for name, shape, want_plan in (("warm_start_1024", (32, 1024, 1024), ("grid", 128, 8)),
                                        ("window_288", (64, 288, 288), ("cluster", 8, 36))):
             require(cuda_kernels.tv_plan(*shape[1:]) == want_plan,
                     f"k2 {name}: planned {cuda_kernels.tv_plan(*shape[1:])}")
@@ -1159,6 +1162,42 @@ def main(argv: list[str]) -> int:
                                     flush=flush),
                 "bound_us": max(d_byts / HBM_BYTES_PER_S, d_flops / FP32_FLOPS) * 1e6}
             others[name] = d_err
+        # the grid design against the block design it replaces at 1024^2, on
+        # smoothed and plain noise: every stop decision the plain version's,
+        # then timed new, old, old, new, cold and warm
+        w1024 = driver_shapes["warm_start_1024"]
+        grid_flips, grid_planes = 0, 0
+        noise_1024 = torch.rand(32, 1024, 1024, generator=g).to(dev)
+        smooth_1024 = torch.nn.functional.avg_pool2d(noise_1024[None], 5, 1, 2)[0].contiguous()
+        for inp in (smooth_1024, noise_1024):
+            p_out, p_it = tv.tv_chambolle_planes(inp, 0.1, 2e-4, 5)
+            for design_1024 in ("grid", "block"):
+                k_out, k_it = cuda_kernels.tv_chambolle_planes_cuda(inp, 0.1, 2e-4, 5,
+                                                                   design=design_1024)
+                require(bool(torch.allclose(k_out, p_out, rtol=1e-5, atol=1e-6)),
+                        f"k2 {design_1024} at 1024^2: disagrees with plain")
+                if design_1024 == "grid":
+                    grid_flips += int((k_it != p_it).sum())
+                    grid_planes += inp.shape[0]
+        require(grid_flips == 0, f"k2: {grid_flips} of {grid_planes} grid stop decisions differ")
+
+        def run_grid():
+            return cuda_kernels.tv_chambolle_planes_cuda(noise_1024, 0.1, 2e-4, 5, design="grid")
+
+        def run_block():
+            return cuda_kernels.tv_chambolle_planes_cuda(noise_1024, 0.1, 2e-4, 5,
+                                                         design="block")
+
+        cold_1024 = [time_ms(f, flush=flush) for f in (run_grid, run_block, run_block, run_grid)]
+        w1024.update(
+            grid_stop_flips=grid_flips, grid_planes_compared=grid_planes,
+            timed_input="uniform noise", cold_runs_grid_block_block_grid=cold_1024,
+            grid_ms=min(cold_1024[0], cold_1024[3]), block_ms=min(cold_1024[1], cold_1024[2]),
+            grid_warm_l2_ms=time_ms(run_grid), block_warm_l2_ms=time_ms(run_block),
+            grid_sms_used=cuda_kernels.tv_sms_used(32, 1024, 1024),
+            grid_groups=cuda_kernels.tv_grid_groups(32, 1024, 1024)[0])
+        require(w1024["grid_ms"] < w1024["block_ms"],
+                f"k2: grid design {w1024['grid_ms']} ms, block design {w1024['block_ms']} ms")
         again = [cuda_kernels.tv_chambolle_planes_cuda(real, 0.1, 2e-4, 5)[0] for _ in range(2)]
         require(bool(torch.equal(*again)), "k2: two calls on one input differ")
         sms_used = cuda_kernels.tv_sms_used(*real.shape)
@@ -1196,6 +1235,7 @@ def main(argv: list[str]) -> int:
         report["tv_chambolle"] = {"max_abs_err": max(err, *others.values()), "ms": ms,
                                   "previous_ms": previous_ms,
                                   "ms_1024": driver_shapes["warm_start_1024"]["ms"],
+                                  "block_ms_1024": driver_shapes["warm_start_1024"]["block_ms"],
                                   "ms_288": driver_shapes["window_288"]["ms"],
                                   "plain_ms": plain_ms, "bound_ms": bound_ms,
                                   "bound_by": "bytes" if byts / HBM_BYTES_PER_S
@@ -3621,7 +3661,7 @@ def main(argv: list[str]) -> int:
         sources = {"x_update": "x_update.cu", "tv_chambolle": "tv_chambolle.cu",
                    "convpair": "convpair_wgmma.cu"}
         extra = {"x_update": ("items2_ms", "items2_plain_ms", "items2_bound_ms"),
-                 "tv_chambolle": ("ms_1024", "ms_288")}
+                 "tv_chambolle": ("ms_1024", "block_ms_1024", "ms_288")}
         rows = []
         for name, kernel in (("x_update", "x_update"), ("tv_chambolle", "tv_chambolle"),
                              *((f"convpair_{n}", "convpair") for n in CONVPAIR_MAIN_SHAPES)):

@@ -91,13 +91,12 @@ def test_x_update_kernel_takes_an_item_axis(cuda, shape, shared_phi):
 
 
 @pytest.mark.parametrize("shape,design", [
-    ((4, 1024, 1024), "block"),     # the packed planes of a 2048^2 warm start
+    ((4, 1024, 1024), "grid"),      # the packed planes of a 2048^2 warm start: 128 strips of 8
     ((16, 288, 288), "cluster"),    # a 512 tile with 32 px of overlap: 8 strips of 36 rows
 ])
 def test_tv_kernel_at_the_drivers_plane_shapes(cuda, shape, design):
     assert cuda_kernels.tv_plan(*shape[1:])[0] == design
-    if design == "cluster":
-        assert cuda_kernels.tv_plan(*shape[1:])[1:] == (8, 36)
+    assert cuda_kernels.tv_plan(*shape[1:])[1:] == {"cluster": (8, 36), "grid": (128, 8)}[design]
     g = torch.Generator().manual_seed(5)
     noise = torch.rand(*shape, generator=g)
     smooth = torch.nn.functional.avg_pool2d(noise[None], 5, 1, 2)[0].contiguous()
@@ -120,25 +119,29 @@ def test_tv_kernel_matches_plain_and_golden(cuda):
     np.testing.assert_allclose(out.cpu().numpy(), gold["out"], rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("design", [None, "cluster", "block"])
+@pytest.mark.parametrize("design", [None, "cluster", "grid", "block"])
 @pytest.mark.parametrize("shape", [
     (32, 256, 256),   # the main path: 7 strips of 37 rows, the last of 34
     (1, 256, 256),    # one plane
     (3, 37, 53),      # h not a multiple of anything, w not a multiple of 4
     (2, 100, 201),    # 3 strips of 34 rows, the last of 32, odd width
-    (2, 3, 10000),    # fewer rows than strips: empty strips
+    (2, 3, 10000),    # fewer rows than strips: empty strips; a row too wide for the grid
     (2, 300, 500),    # 8 strips, the last one short
-    (2, 512, 512),    # too large for shared memory: the block design by the shape rule
+    (2, 512, 512),    # too large for a cluster: the grid design by the shape rule, 29 strips
+    (4, 1024, 1024),  # the warm start's planes at 2048^2: 128 strips of 8 rows, 2 groups
 ])
 def test_tv_designs_match_plain(cuda, shape, design):
-    """Both designs against the plain version, noise and smooth planes (which
-    stop early): same output, same iteration counts."""
+    """Every design against the plain version, noise and smooth planes (which
+    stop early): same output, same iteration counts. The cluster design
+    refuses a plane planned for another; the grid design one whose rows are
+    too wide for its strips."""
     planned = cuda_kernels.tv_plan(*shape[1:])[0]
     g = torch.Generator().manual_seed(2)
     noise = torch.rand(*shape, generator=g)
     smooth = torch.nn.functional.avg_pool2d(noise[None], 3, 1, 1)[0].contiguous()
     for x in (noise.to(cuda), smooth.to(cuda)):
-        if design == "cluster" and planned == "block":
+        if (design == "cluster" and planned != "cluster"
+                or design == "grid" and cuda_kernels.tv_grid_strips(*shape[1:]) is None):
             with pytest.raises(ValueError):
                 cuda_kernels.tv_chambolle_planes_cuda(x, 0.1, 2e-4, 5, design=design)
             continue
@@ -162,6 +165,44 @@ def test_tv_cluster_design_gives_identical_bits_on_repeated_calls(cuda):
     assert cuda_kernels.tv_sms_used(32, 256, 256) > 32
     with pytest.raises(ValueError):
         cuda_kernels.tv_chambolle_planes_cuda(x, 0.1, 2e-4, 5, design="fast")
+
+
+def test_tv_grid_design_gives_identical_bits_on_repeated_calls(cuda):
+    """The 32 packed planes of a 2048^2 warm start on the grid design, noise
+    and smooth (some stop early): equal to the plain version plane for plane,
+    and the same bits on every call (the strips' sums are added in a fixed
+    order, with no atomics)."""
+    assert cuda_kernels.tv_plan(1024, 1024) == ("grid", 128, 8)
+    g = torch.Generator().manual_seed(6)
+    noise = torch.rand(32, 1024, 1024, generator=g)
+    smooth = torch.nn.functional.avg_pool2d(noise[None], 5, 1, 2)[0].contiguous()
+    for x in (noise.to(cuda), smooth.to(cuda)):
+        first, first_it = cuda_kernels.tv_chambolle_planes_cuda(x, 0.1, 2e-4, 30)
+        want, want_it = tv.tv_chambolle_planes(x, 0.1, 2e-4, 30)
+        torch.testing.assert_close(first, want, **TOL)
+        assert torch.equal(first_it, want_it)
+        for _ in range(3):
+            again, again_it = cuda_kernels.tv_chambolle_planes_cuda(x, 0.1, 2e-4, 30)
+            assert torch.equal(first, again) and torch.equal(first_it, again_it)
+    assert cuda_kernels.tv_sms_used(32, 1024, 1024) > 32
+
+
+@pytest.mark.parametrize("shape,design", [((32, 1024, 1024), "grid"), ((3, 512, 512), "grid"),
+                                          ((32, 256, 256), "cluster"),
+                                          ((2, 1600, 1600), "block")])
+def test_tv_design_launches_count_one_a_call(cuda, shape, design):
+    """Each call is one launch of the planned design, counted once in
+    ``launches`` and once in ``tv_design_launches``."""
+    assert cuda_kernels.tv_plan(*shape[1:])[0] == design
+    x = torch.rand(*shape, generator=torch.Generator().manual_seed(7)).to(cuda)
+    before = dict(cuda_kernels.tv_design_launches)
+    before_all = cuda_kernels.launches["tv_chambolle"]
+    for calls in (1, 2):
+        cuda_kernels.tv_chambolle_fused(x, 0.1)
+        torch.cuda.synchronize()
+        assert cuda_kernels.launches["tv_chambolle"] == before_all + calls
+        assert cuda_kernels.tv_design_launches == {
+            k: v + (calls if k == design else 0) for k, v in before.items()}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

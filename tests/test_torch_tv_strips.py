@@ -9,7 +9,10 @@ stop decision. :func:`tv_strips` below is that decomposition in plain PyTorch.
 It is held against the port's plain version (equal bit for bit, equal
 iteration counts) and against the JAX package (rtol 1e-5 / atol 1e-6: float32,
 sums taken in another order). The shape rule that picks the design, the
-cluster size and the strip height is tested beside it.
+cluster size and the strip height is tested beside it. The grid design cuts
+larger planes into strips the same way, one block a strip, with the halo rows
+and the sums passed through device memory: the same decomposition, at more
+strips.
 """
 
 import jax.numpy as jnp
@@ -138,6 +141,31 @@ def test_strips_of_the_planned_shape_equal_the_plain_version():
     assert torch.equal(got, want) and torch.equal(iters, want_iters)
 
 
+def _noise_or_smooth(kind, n, h, w):
+    """``n`` planes of uniform noise, or of smooth waves (which stop before
+    30 iterations at 512 x 512)."""
+    if kind == "noise":
+        return torch.from_numpy(np.random.default_rng(n * h).random((n, h, w), dtype=np.float32))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) / max(h, w)
+    return torch.from_numpy(np.stack([np.sin(3 * xx + k) * np.cos(2 * yy) * 0.5 + 0.5
+                                      for k in range(n)]).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["noise", "smooth"])
+@pytest.mark.parametrize("shape,want", [((2, 1024, 1024), (128, 8)), ((3, 512, 512), (29, 18))])
+def test_strips_of_the_grid_plan_equal_the_plain_version(shape, want, kind):
+    """The grid design's strips at the warm start's plane shapes: 128 strips
+    of 8 rows at 1024 x 1024, 29 of 18 at 512 x 512 (the last of 8)."""
+    n, h, w = shape
+    design, strips, strip_h = cuda_kernels.tv_plan(h, w)
+    assert (design, strips, strip_h) == ("grid", *want)
+    x = _noise_or_smooth(kind, n, h, w)
+    got, iters = tv_strips(x, 0.1, 2e-4, 30, strips, strip_h)
+    want_out, want_iters = ttv.tv_chambolle_planes(x, 0.1, 2e-4, 30)
+    assert torch.equal(got, want_out)
+    assert torch.equal(iters, want_iters)
+
+
 @pytest.mark.parametrize("h,w,want", [
     (256, 256, ("cluster", 7, 37)),      # the flagship's planes: 7 strips, the last of 34 rows
     (128, 128, ("cluster", 2, 64)),
@@ -148,20 +176,63 @@ def test_strips_of_the_planned_shape_equal_the_plain_version():
     (3, 10000, ("cluster", 8, 1)),       # fewer rows than strips: empty strips
     (384, 384, ("cluster", 8, 48)),      # past the tuned strip size, still in shared memory
     (300, 500, ("cluster", 8, 38)),
-    (512, 512, ("block", 1, 512)),       # the planes of a 1024 x 1024 snapshot
-    (1024, 1024, ("block", 1, 1024)),    # the planes of a 2048 x 2048 snapshot
+    (512, 512, ("grid", 29, 18)),        # the planes of a 1024 x 1024 snapshot
+    (1024, 1024, ("grid", 128, 8)),      # the planes of a 2048 x 2048 snapshot
+    (1500, 1500, ("grid", 250, 6)),      # about the largest the card's shared memory holds
+    (1600, 1600, ("block", 1, 1600)),    # 267 strips of 6 rows: more than the card holds
+    (2048, 2048, ("block", 1, 2048)),    # the planes of a 4096 x 4096 snapshot
     (8, 40000, ("block", 1, 8)),         # one row is more than a strip may hold
 ])
 def test_tv_plan(h, w, want):
     design, cluster, strip_h = got = cuda_kernels.tv_plan(h, w)
     assert got == want
-    assert cluster in cuda_kernels.TV_CLUSTER_SIZES and cluster * strip_h >= h
+    assert cluster * strip_h >= h
+    if design != "grid":
+        assert cluster in cuda_kernels.TV_CLUSTER_SIZES
+    if design == "grid":
+        # every strip holds rows, two blocks' strips fit on an SM, and the
+        # card holds a plane's blocks at once
+        assert (cluster - 1) * strip_h < h
+        assert strip_h * w <= cuda_kernels.TV_STRIP_PIXELS
+        assert cluster <= cuda_kernels.TV_GRID_BLOCKS
+        assert -(-h // cuda_kernels.TV_CLUSTER_SIZES[-1]) * w > cuda_kernels.TV_STRIP_PIXELS
+    if design == "block":
+        assert cuda_kernels.tv_grid_strips(h, w) is None
     if design == "cluster":
         assert (strip_h * w * cuda_kernels.TV_STRIP_BYTES_PER_PIXEL
                 <= cuda_kernels.TV_STRIP_SMEM_BYTES)
         # no smaller cluster would have met the strip size
         smaller = [c for c in cuda_kernels.TV_CLUSTER_SIZES if c < cluster]
         assert all(-(-h // c) * w > cuda_kernels.TV_STRIP_PIXELS for c in smaller)
+
+
+@pytest.mark.parametrize("h,w", [(512, 512), (1024, 1024), (720, 1280), (1080, 1920),
+                                 (640, 480), (1500, 1500), (256, 256)])
+def test_tv_grid_strips_keep_the_most_rows_in_flight(h, w):
+    """No strip height of at most TV_STRIP_PIXELS pixels keeps more rows of
+    planes in flight than the one taken, and none as many is taller."""
+    strips, strip_h = cuda_kernels.tv_grid_strips(h, w)
+    budget = cuda_kernels.TV_GRID_BLOCKS
+
+    def rows_in_flight(sh):
+        s = -(-h // sh)
+        return (budget // s) / sh if s <= budget else 0.0
+
+    assert strips == -(-h // strip_h)
+    taken = rows_in_flight(strip_h)
+    for sh in range(1, min(h, cuda_kernels.TV_STRIP_PIXELS // w) + 1):
+        assert rows_in_flight(sh) <= taken
+        if sh > strip_h:
+            assert rows_in_flight(sh) < taken
+
+
+def test_tv_design_launch_counts_are_reset_with_the_launches():
+    assert set(cuda_kernels.tv_design_launches) == set(cuda_kernels.TV_DESIGNS)
+    cuda_kernels.tv_design_launches["grid"] += 3
+    cuda_kernels.launches["tv_chambolle"] += 3
+    cuda_kernels.reset_launches()
+    assert cuda_kernels.tv_design_launches == {"cluster": 0, "grid": 0, "block": 0}
+    assert cuda_kernels.launches["tv_chambolle"] == 0
 
 
 def test_tv_plan_is_a_function_of_the_shape_alone():
