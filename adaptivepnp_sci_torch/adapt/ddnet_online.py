@@ -23,6 +23,7 @@ from adaptivepnp_sci_torch.adapt.online import FrameShard, ItemShard, backward_m
 from adaptivepnp_sci_torch.ops import bayer
 from adaptivepnp_sci_torch.parallel.halo import halo_windows
 from adaptivepnp_sci_torch.solvers.priors import module_copy, window_indices
+from adaptivepnp_sci_torch.utils.profiling import count
 
 
 def frames_mse(err: Tensor, frames: FrameShard | None = None) -> Tensor:
@@ -63,7 +64,8 @@ def dm_adam_steps(net: nn.Module, opt: torch.optim.Adam,
     are summed over its ranks; with ``frames`` each loss is the rank's share
     over its frames, and the gradients are summed over the frame ranks.
     Returns the optimizer last used and the loss of the last step (this
-    rank's share of it with ``shard`` or ``frames``), before its update."""
+    rank's share of it with ``shard`` or ``frames``), before its update.
+    Each step adds one to the counter ``apnp.dm_adam_steps``."""
     params = list(net.parameters())
     loss = torch.zeros((), device=params[0].device)
     with torch.enable_grad():
@@ -76,6 +78,7 @@ def dm_adam_steps(net: nn.Module, opt: torch.optim.Adam,
                 if reducer is not None:
                     reducer.all_reduce([p.grad for p in params if p.grad is not None])
             opt.step()
+            count("apnp.dm_adam_steps")
     net.zero_grad(set_to_none=True)
     return opt, loss.detach()
 

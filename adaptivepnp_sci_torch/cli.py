@@ -18,7 +18,8 @@ reference's), ``.npz`` (the ``/``-keyed files of ``weights/``) or ``.pt``
 (this package's trainer checkpoints; ``train`` writes ``{ckpt-dir}/final.pt``),
 never orbax directories; ``--random-init`` and ``train`` draw PyTorch's
 default initialisation under a fixed seed, not the JAX package's
-``PRNGKey`` Flax weights.
+``PRNGKey`` Flax weights; ``serve`` also takes ``reconstruct``'s
+``--deep-demosaicking`` and ``--ddnet-ckpt``.
 """
 
 from __future__ import annotations
@@ -117,6 +118,21 @@ def _build_denoiser(denoiser: str, ckpt: str | None, random_init: bool = False,
     return model, fastdvd_prior(model), variables
 
 
+def _build_demosaicker(ckpt: str | None, random_init: bool = False, bf16: bool = False):
+    """``(model, variables)`` of the DDnet demosaicker for a CLI run
+    (``reconstruct``, ``serve``): ``ckpt``, else ``weights/ddnet.npz``."""
+    import torch
+
+    from adaptivepnp_sci_torch.models import convert
+    from adaptivepnp_sci_torch.models.ddnet import DDnet
+
+    model = DDnet(dtype=torch.bfloat16 if bf16 else None)
+    variables = _load_weights(
+        ckpt, convert.load_ddnet, convert.ddnet_from_flax, lambda: _seeded_init(DDnet, 1),
+        defaults=(str(REPO_WEIGHTS / "ddnet.npz"),), random_init=random_init)
+    return model, variables
+
+
 def _check_device(device: str) -> str:
     import torch
 
@@ -165,8 +181,6 @@ def trainable_names(model, filters: tuple[str, ...]) -> tuple[str, ...]:
 def _cmd_reconstruct(args) -> None:
     import dataclasses
 
-    import torch
-
     from adaptivepnp_sci_torch.configs.scenes import admm_config_for
     from adaptivepnp_sci_torch.data.mat_io import load_cacti_mat, load_warm_start, save_results
     from adaptivepnp_sci_torch.models import convert
@@ -213,14 +227,9 @@ def _cmd_reconstruct(args) -> None:
     deep_dd = args.deep_demosaicking
     demosaic_fn = dd = dd_vars = None
     if args.deep_demosaicking or args.auto_demosaic:
-        from adaptivepnp_sci_torch.models.ddnet import DDnet
         from adaptivepnp_sci_torch.solvers.priors import ddnet_demosaic
 
-        dd = DDnet(dtype=torch.bfloat16 if args.bf16 else None)
-        dd_vars = _load_weights(
-            args.ddnet_ckpt, convert.load_ddnet, convert.ddnet_from_flax,
-            lambda: _seeded_init(DDnet, 1),
-            defaults=(str(REPO_WEIGHTS / "ddnet.npz"),), random_init=args.random_init)
+        dd, dd_vars = _build_demosaicker(args.ddnet_ckpt, args.random_init, args.bf16)
         if args.auto_demosaic:
             from adaptivepnp_sci_torch.pipelines import select_demosaicker
 
@@ -563,8 +572,10 @@ def _cmd_serve(args) -> None:
     One long-lived process keeps the model loaded and the kernels built, so
     every file after the first runs at steady-state speed.
     ``--carry-weights`` threads the online-adapted denoiser weights from one
-    file to the next. A file that fails to load, solve or write is reported
-    as ``FAILED`` and skipped; it never stops the service.
+    file to the next. ``--deep-demosaicking`` serves the scene table's deep
+    demosaicking row with the fixed-weight DDnet of ``--ddnet-ckpt``. A file
+    that fails to load, solve or write is reported as ``FAILED`` and
+    skipped; it never stops the service.
     """
     import time as _time
 
@@ -574,6 +585,12 @@ def _cmd_serve(args) -> None:
     device = _check_device(args.device)
     _, prior, variables = _build_denoiser(args.denoiser, args.ckpt,
                                           random_init=args.random_init, bf16=args.bf16)
+    demosaic_fn = None
+    if args.deep_demosaicking:
+        from adaptivepnp_sci_torch.solvers.priors import ddnet_demosaic
+
+        demosaic_fn = ddnet_demosaic(*_build_demosaicker(args.ddnet_ckpt, args.random_init,
+                                                          args.bf16))
     os.makedirs(args.out, exist_ok=True)
     seen: set[str] = set()
     sizes: dict[str, int] = {}
@@ -608,8 +625,9 @@ def _cmd_serve(args) -> None:
             try:
                 scene = load_cacti_mat(path, name=args.scene)
                 out = run_reconstruction(scene, prior, variables, denoiser=args.denoiser,
+                                         deep_demosaicking=args.deep_demosaicking,
                                          update=not args.no_update, reuse_model=True,
-                                         device=device)
+                                         demosaic_fn=demosaic_fn, device=device)
                 save_results(dst, out.x_bayer, out.x_rgb, out.psnr, out.ssim,
                              out.psnr_all_iter)
             except Exception as e:  # noqa: BLE001 — a bad file or a failed
@@ -788,7 +806,14 @@ def main(argv: list[str] | None = None) -> None:
     v.add_argument("--ckpt", default=None)
     v.add_argument("--random-init", action="store_true",
                    help="untrained weights, as for reconstruct")
-    v.add_argument("--bf16", action="store_true")
+    v.add_argument("--bf16", action="store_true",
+                   help="FastDVDnet/DDnet conv chains in bf16 with float32 residuals")
+    v.add_argument("--deep-demosaicking", action="store_true",
+                   help="serve the scene's deep demosaicking row: the fixed-weight DDnet "
+                        "in place of Malvar")
+    v.add_argument("--ddnet-ckpt", default=None,
+                   help="DDnet checkpoint (.pth, /-keyed .npz or .pt); default "
+                        "weights/ddnet.npz")
     v.add_argument("--scene", default="Beauty",
                    help="per-scene schedule table to serve with (default Beauty)")
     v.add_argument("--no-update", action="store_true", help="disable online adaptation")

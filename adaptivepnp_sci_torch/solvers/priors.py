@@ -26,6 +26,7 @@ from torch import Tensor
 
 from adaptivepnp_sci_torch.ops.bayer import embed_rgb
 from adaptivepnp_sci_torch.parallel.halo import halo_windows
+from adaptivepnp_sci_torch.utils.profiling import annotate, count
 
 if TYPE_CHECKING:
     from adaptivepnp_sci_torch.parallel.mesh import Mesh
@@ -170,7 +171,9 @@ def ddnet_demosaic_param(model: nn.Module, window: int = 5, mesh: "Mesh | None" 
 
     Embeds each Bayer frame as sparse RGB, reflect-pads H and W up to
     multiples of 4 (the U-Nets downsample twice), gathers circular 5-frame
-    windows and runs DDnet on all B windows as one batch, then crops.
+    windows and runs DDnet on all B windows as one batch, then crops. The
+    forward is the span ``apnp.ddnet``, and the counter ``apnp.ddnet_windows``
+    adds the windows it takes.
 
     ``mesh``: the frames are this rank's of a cube spread over ``mesh``'s
     ``frame`` axis; the windows reach the neighbours' frames through the ring
@@ -190,7 +193,10 @@ def ddnet_demosaic_param(model: nn.Module, window: int = 5, mesh: "Mesh | None" 
             windows = rgb[window_indices(b, window).to(rgb.device)]
         else:
             windows = halo_windows(rgb, mesh, "frame", window)
-        return net(windows)[:, :h, :w]
+        with annotate("apnp.ddnet"):
+            count("apnp.ddnet_windows", windows.shape[0])
+            out = net(windows)
+        return out[:, :h, :w]
 
     return apply
 

@@ -190,11 +190,13 @@ class DmState:
     def demosaic(self, mosaic_frames: Tensor) -> Tensor:
         return self.spec.apply(self.net, mosaic_frames)
 
+    @annotate("apnp.dm_adapt")
     def update(self, mosaic_frames: Tensor, shard: ItemShard | None = None) -> None:
         """``update_per_iter`` self-consistency Adam steps on ``mosaic_frames``
         ``(N, B, H, W)``: one update shared by the ``N`` measurements, on the
         mean of their losses (over the whole group of a ``shard``, and over
-        every rank's frames with the state's ``frames``)."""
+        every rank's frames with the state's ``frames``). The update is the
+        span ``apnp.dm_adapt``."""
         def loss(frames: Tensor) -> Callable[[], Tensor]:
             def fn() -> Tensor:
                 out = self.demosaic(frames)

@@ -16,7 +16,12 @@ entries ``end_to_end.reconstruct_single_dispatch``, ``gap_tv.gap_tv`` and
 (``gap_tv._gap_tv_packed``), ``apnp.admm.iter`` (each iteration of
 ``two_stage_admm.run_admm``) and, inside it, ``apnp.demosaic``,
 ``apnp.adapt`` (one trigger of ``adapt.online.make_adapt_fn``'s ``adapt``,
-which counts ``apnp.adam_steps``) and ``apnp.prior``.
+which counts ``apnp.adam_steps``) and ``apnp.prior``. Inside
+``apnp.demosaic``, ``apnp.dm_adapt`` is the in-scan adaptation of the deep
+demosaicker (``two_stage_admm.DmState.update``, which counts
+``apnp.dm_adam_steps``) and ``apnp.ddnet`` each DDnet forward
+(``priors.ddnet_demosaic_param``, which counts the windows in
+``apnp.ddnet_windows``).
 
 The JAX package's ``utils.enable_compile_cache`` has no counterpart: the CUDA
 kernels are built once into ``adaptivepnp_sci_torch/_build/`` and loaded from
