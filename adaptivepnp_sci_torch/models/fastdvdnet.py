@@ -20,9 +20,14 @@ a float32 scale and shift. In that mode the U-Net is kept in
 ``torch.channels_last`` memory, and the eight C -> C :class:`CvBlock` s of a
 denoiser call are each one launch of the fused conv-pair kernel
 (:func:`adaptivepnp_sci_torch.ops.cuda_kernels.convpair`) when the tensors
-are on the card and no gradient is asked for; a forward with gradient (the
-online adaptation) or in train mode goes through the library's convolutions
-with the same arithmetic.
+are on the card and no gradient is asked for. Under the same condition the
+folded BatchNorm and ReLU after each of the other BatchNorm'd convolutions
+(the library's) is one launch of the epilogue kernel
+(:func:`adaptivepnp_sci_torch.ops.cuda_kernels.scale_shift_relu`, bit for
+bit the plain version): ten a :meth:`FastDVDnet.seq_circular` call. A forward
+with gradient (the online adaptation) or in train mode goes through the
+library's convolutions and PyTorch's elementwise passes with the same
+arithmetic.
 
 :meth:`FastDVDnet.seq_circular` denoises a whole circular B-frame sequence
 with ``temp1`` evaluated once per distinct triplet (B evaluations instead of
@@ -59,12 +64,22 @@ def _conv(x: Tensor, conv: nn.Conv2d, dtype: torch.dtype | None) -> Tensor:
     return convpair_ops.conv2d_lowp(x, conv.weight, conv.stride[0], conv.groups)
 
 
+def _needs_grad(*tensors: Tensor) -> bool:
+    """Whether a forward over ``tensors`` must be differentiable: the kernels
+    have no backward."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _bn_relu(x: Tensor, bn: nn.BatchNorm2d, dtype: torch.dtype | None) -> Tensor:
     if dtype is None:
         return F.relu(bn(x))
     if bn.training:  # batch statistics, in float32
         return F.relu(bn(x.float())).to(dtype)
-    return convpair_ops.scale_shift_relu(x, *convpair_ops.fold_bn(bn))
+    # low-precision eval: the folded epilogue, on the kernel unless a gradient is needed
+    s, b = convpair_ops.fold_bn(bn)
+    epilogue = (convpair_ops.scale_shift_relu if _needs_grad(x, s, b)
+                else cuda_kernels.scale_shift_relu)
+    return epilogue(x, s, b)
 
 
 def _hwio(conv: nn.Conv2d, dtype: torch.dtype) -> Tensor:
@@ -91,9 +106,7 @@ class CvBlock(nn.Module):
         # low-precision eval: the conv pair, on the kernel unless a gradient is needed
         args = (_hwio(conv0, dt), *convpair_ops.fold_bn(bn0),
                 _hwio(conv1, dt), *convpair_ops.fold_bn(bn1))
-        needs_grad = torch.is_grad_enabled() and (
-            x.requires_grad or any(a.requires_grad for a in args))
-        pair = convpair_ops.convpair if needs_grad else cuda_kernels.convpair
+        pair = convpair_ops.convpair if _needs_grad(x, *args) else cuda_kernels.convpair
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         return pair(nhwc, *args).permute(0, 3, 1, 2)
 

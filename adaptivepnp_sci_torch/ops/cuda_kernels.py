@@ -25,6 +25,12 @@ the intermediate kept on chip (:func:`convpair`), in two designs:
 * ``csrc/convpair.cu`` (``"mma"``): warp-level ``mma.sync`` fed by
   ``ldmatrix``; every C, and the only design for C = 32.
 
+A fourth, ``csrc/bn_relu.cu``, replaces no Pallas kernel: it is the epilogue
+that XLA fused into each of FastDVDnet's other convolutions on the TPU, the
+folded BatchNorm, ReLU and bf16 rounding after a library bf16 convolution,
+in one pass over device memory (:func:`scale_shift_relu`), bit for bit the
+plain version's five.
+
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into ``_build/`` beside the
 package; the libraries are loaded with ``ctypes``. A library's file name
@@ -63,7 +69,8 @@ BUILD_DIR = _PKG / "_build"
 
 #: sources, one shared library each
 SOURCES = {"x_update": CSRC / "x_update.cu", "tv_chambolle": CSRC / "tv_chambolle.cu",
-           "convpair": CSRC / "convpair.cu", "convpair_wgmma": CSRC / "convpair_wgmma.cu"}
+           "convpair": CSRC / "convpair.cu", "convpair_wgmma": CSRC / "convpair_wgmma.cu",
+           "bn_relu": CSRC / "bn_relu.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -71,7 +78,7 @@ NVCC_FLAGS = (
 )
 
 #: kernel launches since the last :func:`reset_launches`, per kernel
-launches = {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
+launches = {"x_update": 0, "tv_chambolle": 0, "convpair": 0, "bn_relu": 0}
 #: the TV kernel's launches once more, by design
 tv_design_launches = {"cluster": 0, "grid": 0, "block": 0}
 #: the conv pair's launches once more, by ``(C, H, W)`` of the activation
@@ -148,6 +155,7 @@ def _signatures() -> dict[str, dict[str, list]]:
             "apnp_tv_grid_occupancy": [i, i, p]},
         "convpair": {"apnp_convpair": pair},
         "convpair_wgmma": {"apnp_convpair_wgmma": pair},
+        "bn_relu": {"apnp_bn_relu": [p, p, p, p, ll, i, ll, p]},
     }
 
 
@@ -531,4 +539,52 @@ def convpair(x: Tensor, w1: Tensor, s1: Tensor, b1: Tensor,
     _raise_on(rc, "convpair launch")
     launches["convpair"] += 1
     convpair_launches[(c, h, w)] = convpair_launches.get((c, h, w), 0) + 1
+    return out
+
+
+#: the most channels whose scale and shift the epilogue kernel stages in
+#: shared memory, 8 bytes a channel in the 48 KB a block takes unasked
+BN_RELU_MAX_CHANNELS = 6144
+
+
+def scale_shift_relu(x: Tensor, s: Tensor, b: Tensor) -> Tensor:
+    """Fused equivalent of :func:`adaptivepnp_sci_torch.ops.convpair.scale_shift_relu`
+    (``csrc/bn_relu.cu``), bit for bit: ``x (N, C, H, W)`` bf16, channels-last
+    or NCHW-contiguous, ``s``/``b`` float32 with ``C`` elements; the result
+    has the layout of ``x``.
+
+    The kernel has no backward: with CUDA inputs that need a gradient it
+    raises, and a caller that differentiates takes the plain version."""
+    if x.device.type == "cpu":
+        return convpair_ops.scale_shift_relu(x, s, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, s, b)):
+        raise RuntimeError("scale_shift_relu: the fused kernel has no backward; "
+                           "call ops.convpair.scale_shift_relu for a forward with gradient")
+    if x.dim() != 4 or x.dtype != torch.bfloat16:
+        raise TypeError(f"scale_shift_relu: expected x (N, C, H, W) in bf16, "
+                        f"got {tuple(x.shape)} in {x.dtype}")
+    n, c, h, w = x.shape
+    if min(n, c, h, w) < 1 or c > BN_RELU_MAX_CHANNELS:
+        raise ValueError(f"scale_shift_relu: shape {tuple(x.shape)} is outside the kernel's "
+                         f"range (C at most {BN_RELU_MAX_CHANNELS})")
+    if x.is_contiguous():
+        inner = h * w
+    elif x.is_contiguous(memory_format=torch.channels_last):
+        inner = 1
+    else:
+        raise ValueError("scale_shift_relu: expected x NCHW-contiguous or channels-last")
+    dev = x.device
+    vecs = [t.reshape(-1) for t in (s, b)]
+    for nm, t in zip(("s", "b"), vecs):
+        _check(f"scale_shift_relu {nm}", t, (c,), dev)
+    out = torch.empty_like(x)
+    if x.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("scale_shift_relu: x must be aligned to 16 bytes")
+    lib = _lib("bn_relu")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.apnp_bn_relu(x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+                              out.data_ptr(), x.numel(), c, inner, stream)
+    _raise_on(rc, "bn_relu launch")
+    launches["bn_relu"] += 1
     return out

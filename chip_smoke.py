@@ -9,7 +9,9 @@ Run from the repository root:
 
 It builds the CUDA kernels from ``adaptivepnp_sci_torch/csrc/``, holds each
 against its plain PyTorch version on the card (both designs of the TV and
-conv-pair kernels, timed side by side), holds the kernel paths
+conv-pair kernels, timed side by side; the epilogue kernel bit for bit at
+the four shapes of a bf16 FastDVDnet call's ten BatchNorm sites, with that
+call's launches with and without gradient: ``bn_relu``), holds the kernel paths
 against the plain paths on the CPU end to end, and drives three 512x512x8
 reconstructions: the flagship (GAP-TV warm start, two-stage ADMM with
 FFDNet-color nc = 96, nb = 12 and online adaptation, random weights made
@@ -93,7 +95,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "k1", "k2", "k3", "slice_parity", "flagship",
+PHASES = ("device", "build", "k1", "k2", "k3", "bn_relu", "slice_parity", "flagship",
           "fastdvd_parity", "fastdvd", "ddnet_parity", "ddnet", "drivers_parity", "tiled",
           "sequence", "pipeline_parity", "cli", "train_parity", "train", "scenes_parity",
           "scenes", "models_parity", "parallel_parity", "parallel", "host", "weights", "seams",
@@ -118,9 +120,24 @@ BF16_FLOPS = 989e12
 #: flops per pixel per iteration of the TV kernel: divergence 4, out 1,
 #: d^2 2, gradient 2, norm 4 (with sqrt), coef 2, dual update 6, norm sum 1
 TV_FLOPS_PER_PIXEL_ITER = 22
+#: the kernels whose launches the phases count
+_K = ("x_update", "tv_chambolle", "convpair", "bn_relu")
+
+
+def _launches(x_update: int = 0, tv_chambolle: int = 0, convpair: int = 0) -> dict:
+    """Launches of each kernel. The conv pairs are those of bf16 FastDVDnet
+    U-Nets (``DenBlock``, ``SpatialDnCNN``) run without gradient, four a call;
+    each such call also runs the epilogue kernel after its five other
+    BatchNorm'd convolutions, so ``bn_relu`` is five for every four."""
+    if convpair % 4:
+        raise ValueError(f"{convpair} conv pairs are not whole U-Net calls")
+    return {"x_update": x_update, "tv_chambolle": tv_chambolle, "convpair": convpair,
+            "bn_relu": convpair // 4 * 5}
+
+
 #: the flagship's launches per reconstruction: 40 GAP + 25 ADMM x-updates,
 #: 40 TV proxes (one per warm-start iteration)
-FLAGSHIP_LAUNCHES = {"x_update": 65, "tv_chambolle": 40, "convpair": 0}
+FLAGSHIP_LAUNCHES = _launches(65, 40)
 
 SIGMA = (25 / 255, 12 / 255, 6 / 255)
 ITERS = (15, 6, 4)
@@ -133,8 +150,8 @@ FASTDVD_ADAPT = dict(lr=2e-7, update_per_iter=2, interval_iter=12, initial_iter=
 #: its launches per reconstruction: 40 GAP + 36 ADMM x-updates, 40 TV proxes,
 #: and in bf16 the 8 CvBlocks of each of the 36 no-grad denoiser calls
 FASTDVD_LAUNCHES = {
-    "fp32": {"x_update": 76, "tv_chambolle": 40, "convpair": 0},
-    "bf16": {"x_update": 76, "tv_chambolle": 40, "convpair": 288},
+    "fp32": _launches(76, 40),
+    "bf16": _launches(76, 40, 288),
 }
 #: the fastdvd phase's runs per scene and mode, the first a warm-up unless
 #: it is the only one (the float32 row takes 7.3 s a run; the smooth scene's
@@ -144,6 +161,12 @@ FASTDVD_RUNS = {("smooth", "fp32"): 2, ("smooth", "bf16"): 4, ("leaves", "fp32")
 #: the conv pair's two shapes on that path, (C, H, W) of the activation with
 #: N = 8: half and quarter resolution, 4 CvBlocks per denoiser call each
 CONVPAIR_MAIN_SHAPES = {"c64_256": (64, 256, 256), "c128_128": (128, 128, 128)}
+#: the epilogue kernel's four shapes on that path, (C, H, W) of the activation
+#: with N = 8, and its launches of each per denoiser call (temp1 and temp2):
+#: inc's grouped conv (90 channels) and fusion conv (32) and outc's first conv
+#: (32) at full size, the two downs' strided convs at half and quarter size
+BN_RELU_SITES = {"c90_512": ((90, 512, 512), 2), "c32_512": ((32, 512, 512), 4),
+                 "c64_256": ((64, 256, 256), 2), "c128_128": ((128, 128, 128), 2)}
 #: Parity of the kernel path on the card with the plain path on the CPU at
 #: 64x64x8: (iterations, launches, bar on per-frame PSNR in dB, bar on x_bayer,
 #: what of x_bayer the bar holds). Float32 differs by summation order only.
@@ -156,7 +179,7 @@ CONVPAIR_MAIN_SHAPES = {"c64_256": (64, 256, 256), "c128_128": (128, 128, 128)}
 #: the first stage, and by rms over the whole schedule with its two triggers.
 FASTDVD_PARITY = {
     "fp32": [(FASTDVD_ITERS, FASTDVD_LAUNCHES["fp32"], 0.05, 1e-3, "max")],
-    "bf16": [((12, 0), {"x_update": 52, "tv_chambolle": 40, "convpair": 96}, 0.15, 2e-2, "max"),
+    "bf16": [((12, 0), _launches(52, 40, 96), 0.15, 2e-2, "max"),
              (FASTDVD_ITERS, FASTDVD_LAUNCHES["bf16"], 1.0, 3e-2, "rms")],
 }
 
@@ -168,14 +191,14 @@ FASTDVD_PARITY = {
 #: GAP-TV (the guard's candidate 0) x-updates, 40 + 40 TV proxes, and the 8
 #: CvBlocks of each of the 36 no-grad bf16 FastDVDnet calls; DDnet (C = 40,
 #: 80) and the trigger's forward launch no conv pair
-DDNET_LAUNCHES = {"x_update": 116, "tv_chambolle": 80, "convpair": 288}
+DDNET_LAUNCHES = _launches(116, 80, 288)
 #: the ddnet phase's runs per scene, the first a warm-up unless it is the
 #: only one (the smooth scene's runs warm the leaves scene's)
 DDNET_RUNS = {"smooth": 3, "leaves": 1}
 #: the parity run of that row at 64x64x8 in float32: schedule (6, 4), the
 #: trigger at k = 5; 40 + 10 + 40 x-updates, 40 + 40 TV proxes
 DDNET_PARITY_ITERS = (6, 4)
-DDNET_PARITY_LAUNCHES = {"x_update": 90, "tv_chambolle": 80, "convpair": 0}
+DDNET_PARITY_LAUNCHES = _launches(90, 80)
 #: the pipeline's defaults for the in-scan demosaicker adaptation
 DM_UPDATE = dict(lr=1e-6, update_per_iter=1)
 
@@ -187,11 +210,11 @@ DM_UPDATE = dict(lr=1e-6, update_per_iter=1)
 #: covers a group), 40 TV proxes, and 8 conv pairs per denoiser call of each
 #: tile, 16 x 36 x 8
 TILED = dict(size=2048, tile=512, tile_chunk=2)
-TILED_LAUNCHES = {2: {"x_update": 40 + 8 * 36, "tv_chambolle": 40, "convpair": 16 * 36 * 8},
-                  4: {"x_update": 40 + 4 * 36, "tv_chambolle": 40, "convpair": 16 * 36 * 8}}
+TILED_LAUNCHES = {2: _launches(40 + 8 * 36, 40, 16 * 36 * 8),
+                  4: _launches(40 + 4 * 36, 40, 16 * 36 * 8)}
 #: the sequence path: the FFDNet flagship over T = 2 measurements of one
 #: scene, the weights and one Adam carried; both GAP-TV warm starts counted
-SEQUENCE_LAUNCHES = {"x_update": 2 * 40 + 2 * 25, "tv_chambolle": 2 * 40, "convpair": 0}
+SEQUENCE_LAUNCHES = _launches(2 * 40 + 2 * 25, 2 * 40)
 #: card-vs-CPU parity of the drivers: float32, bar on per-frame PSNR (dB) and
 #: on max |dx|, the same select_best pick on both sides
 DRIVERS_PARITY_BAR = (0.05, 1e-3)
@@ -207,7 +230,7 @@ PIPELINE_RESID_RTOL = 1e-4
 #: x-updates and 40 TV proxes; tiled (4 windows of 48), one x-update launch
 #: per step covers all tiles
 PIPELINE_PARITY_RUNS = {"reuse_model": {}, "tiled": dict(tile=32, tile_overlap=8)}
-PIPELINE_PARITY_LAUNCHES = {"x_update": 2 * 65, "tv_chambolle": 2 * 40, "convpair": 0}
+PIPELINE_PARITY_LAUNCHES = _launches(2 * 65, 2 * 40)
 
 #: the CLI chain at 512x512x8 over 2 measurements (``synth --n-meas 2``),
 #: FastDVDnet in bf16 on the Bosphorus rows, every row guarded (held-out
@@ -224,16 +247,15 @@ PIPELINE_PARITY_LAUNCHES = {"x_update": 2 * 65, "tv_chambolle": 2 * 40, "convpai
 CLI_N_MEAS = 2
 CLI_SIZE = 512
 CLI_LAUNCHES = {
-    "synth": {"x_update": 0, "tv_chambolle": 0, "convpair": 0},
-    "warmstart": {"x_update": 2 * 40, "tv_chambolle": 2 * 40, "convpair": 0},
-    "reconstruct": {"x_update": 2 * 76, "tv_chambolle": 2 * 40, "convpair": 2 * 288},
-    "reconstruct_auto": {"x_update": 4 * 36 + 2 * 76, "tv_chambolle": 2 * 40,
-                         "convpair": 4 * 288 + 2 * 288},
-    "eval": {"x_update": 0, "tv_chambolle": 0, "convpair": 0},
-    "serve": {"x_update": 4 * 116, "tv_chambolle": 4 * 80, "convpair": 4 * 288},
-    "synth_leaves": {"x_update": 0, "tv_chambolle": 0, "convpair": 0},
-    "warmstart_leaves": {"x_update": 40, "tv_chambolle": 40, "convpair": 0},
-    "reconstruct_leaves": {"x_update": 76, "tv_chambolle": 40, "convpair": 288},
+    "synth": _launches(),
+    "warmstart": _launches(2 * 40, 2 * 40),
+    "reconstruct": _launches(2 * 76, 2 * 40, 2 * 288),
+    "reconstruct_auto": _launches(4 * 36 + 2 * 76, 2 * 40, 4 * 288 + 2 * 288),
+    "eval": _launches(),
+    "serve": _launches(4 * 116, 4 * 80, 4 * 288),
+    "synth_leaves": _launches(),
+    "warmstart_leaves": _launches(40, 40),
+    "reconstruct_leaves": _launches(76, 40, 288),
 }
 
 
@@ -275,12 +297,12 @@ TRAIN_SCENE = 512
 #: start 40 GAP-TV steps; the guarded solve from the warm-start file 36 ADMM +
 #: 40 masked GAP-TV x-updates, 40 TV proxes and 8 conv pairs per no-grad bf16
 #: denoiser call (36 calls)
-_NONE = {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
+_NONE = _launches()
 TRAIN_LAUNCHES = {
     "train_fastdvd": _NONE, "train_ffdnet": _NONE, "train_ddnet": _NONE, "denoise": _NONE,
     "synth": _NONE,
-    "warmstart": {"x_update": 40, "tv_chambolle": 40, "convpair": 0},
-    "reconstruct": {"x_update": 76, "tv_chambolle": 40, "convpair": 288},
+    "warmstart": _launches(40, 40),
+    "reconstruct": _launches(76, 40, 288),
 }
 
 #: the six-scene reproduction run (``run_all_scenes.main``): card vs CPU on the
@@ -327,13 +349,6 @@ MODELS_PARITY_REL = 1e-5
 #: same card, elementwise like every other array.
 PARALLEL_PARITY_BAR = {"world1": 1e-5, "cpu": 1e-4, "bf16": 2e-2, "dp_lr": 1e-3,
                        "cpu_grad_rel_norm": 1e-3}
-_K = ("x_update", "tv_chambolle", "convpair")
-
-
-def _launches(x_update: int = 0, tv_chambolle: int = 0, convpair: int = 0) -> dict:
-    return {"x_update": x_update, "tv_chambolle": tv_chambolle, "convpair": convpair}
-
-
 #: launches of each case: (each of the 2 ranks, the world-size-1 run). K1 one
 #: launch per ADMM iteration on every rank, for all of the rank's tiles or
 #: measurements (the solver: 3 iterations from the adjoint; tiled: 5; the
@@ -535,7 +550,7 @@ BENCH_JAX_BAR_DB = 3e-5
 #: launches of one reconstruction per mode (warmstart: 40 GAP-TV iterations
 #: and one ADMM-TV step, each an x-update and a TV prox)
 BENCH_LAUNCHES = {"flagship": FLAGSHIP_LAUNCHES, "fixed": FLAGSHIP_LAUNCHES,
-                  "warmstart": {"x_update": 41, "tv_chambolle": 41, "convpair": 0}}
+                  "warmstart": _launches(41, 41)}
 #: the suite (``suite``): every row of ``run_benchmark_suite`` and
 #: ``bench_batched`` at 1 and 2 measurements, at ``STUDIES``' size, FFDNet
 #: width and cut schedules, once each (``n = 0``), the card against the CPU's
@@ -562,8 +577,7 @@ def scenes_launches(name: str, mode: str, n_meas: int, lowp: bool) -> dict:
     cfg = admm_config_for(name, denoiser, deep_dd, True)
     iters, guard = sum(cfg.iters), 40 if cfg.select_best else 0
     pairs = 8 * iters if lowp and denoiser == "fastdvd" else 0
-    return {"x_update": n_meas * (iters + guard), "tv_chambolle": n_meas * guard,
-            "convpair": n_meas * pairs}
+    return _launches(n_meas * (iters + guard), n_meas * guard, n_meas * pairs)
 
 
 def studies_launches(tool: str) -> dict:
@@ -852,7 +866,7 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    needed = {"k1", "k2", "k3", "flagship", "fastdvd", "ddnet", "tiled", "sequence", "cli",
+    needed = {"k1", "k2", "k3", "bn_relu", "flagship", "fastdvd", "ddnet", "tiled", "sequence", "cli",
               "train", "scenes", "parallel", "weights", "seams", "studies", "bench", "suite"}
     if "kernels" in phases and not needed <= phases:
         ap.error(f"the kernels phase needs the {', '.join(sorted(needed))} phases")
@@ -1330,6 +1344,91 @@ def main(argv: list[str]) -> int:
                 "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
         del cases, trained
 
+    # ------------------------------------------------------------- bn_relu
+    if "bn_relu" in phases:
+        net = FastDVDnet(dtype=torch.bfloat16, remat=False)
+        net.load_state_dict(fastdvd_params)
+        net.to(dev).eval()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        frames = torch.rand(8, 512, 512, 3, device=dev, generator=gen)
+        wrapper = cuda_kernels.scale_shift_relu
+        sites: dict[tuple, int] = {}
+
+        def spy(x, s, b):
+            key = (tuple(x.shape[1:]), "channels_last" if not x.is_contiguous() else "nchw")
+            sites[key] = sites.get(key, 0) + 1
+            return wrapper(x, s, b)
+
+        def prior_call(epilogue):
+            cuda_kernels.scale_shift_relu = epilogue
+            try:
+                with torch.no_grad():
+                    return net.seq_circular(frames, FASTDVD_SIGMA[0])
+            finally:
+                cuda_kernels.scale_shift_relu = wrapper
+
+        # one prior call at 512^2 x 8 through the kernel, and with PyTorch's passes
+        cuda_kernels.reset_launches()
+        fused = prior_call(spy)
+        torch.cuda.synchronize()
+        call_launches = dict(cuda_kernels.launches)
+        plain = prior_call(convpair_ops.scale_shift_relu)
+        require(call_launches == _launches(convpair=8),
+                f"bn_relu: a prior call's launches {call_launches}")
+        require(bool(torch.equal(fused, plain)),
+                "bn_relu: the prior call differs from the one with PyTorch's passes")
+        require({shp: n for (shp, _), n in sites.items()} == dict(BN_RELU_SITES.values()),
+                f"bn_relu: a prior call's sites {sites}")
+        layouts = {shp: lay for shp, lay in sites}
+        # a forward with gradient, as the adaptation's: no launch
+        cuda_kernels.reset_launches()
+        net.seq_circular(frames, FASTDVD_SIGMA[0]).square().mean().backward()
+        torch.cuda.synchronize()
+        grad_launches = cuda_kernels.launches["bn_relu"]
+        require(grad_launches == 0, f"bn_relu: {grad_launches} launches with gradient")
+        del net, fused, plain
+        per = {}
+        for name, ((c, h, w), count) in BN_RELU_SITES.items():
+            x = (torch.randn(8, c, h, w, device=dev, generator=gen) * 2).to(torch.bfloat16)
+            if layouts[c, h, w] == "channels_last":
+                x = x.contiguous(memory_format=torch.channels_last)
+            s = torch.randn(c, device=dev, generator=gen)
+            b = torch.randn(c, device=dev, generator=gen)
+
+            def kern():
+                return cuda_kernels.scale_shift_relu(x, s, b)
+
+            def chain():
+                return convpair_ops.scale_shift_relu(x, s, b)
+
+            got, want = kern(), chain()
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(got.view(torch.int16), want.view(torch.int16)))
+            require(equal and got.stride() == want.stride(),
+                    f"bn_relu {name}: the kernel differs from the plain version")
+            del got, want
+            byts = 4 * x.numel()
+            per[name] = {"shape": [8, c, h, w], "layout": layouts[c, h, w],
+                         "launches_per_call": count, "bit_equal": equal, "bytes": byts,
+                         "ms": time_ms(kern, flush=flush), "warm_l2_ms": time_ms(kern),
+                         "plain_ms": time_ms(chain, n=10, flush=flush),
+                         "bound_ms": byts / HBM_BYTES_PER_S * 1e3}
+            per[name]["share_of_bound"] = per[name]["bound_ms"] / per[name]["ms"]
+            del x
+        call = {k: sum(p[k] * p["launches_per_call"] for p in per.values())
+                for k in ("ms", "plain_ms", "bound_ms")}
+        emit("bn_relu", tolerance="bit for bit", cases=per, per_prior_call_ms=call,
+             prior_call_launches=call_launches, grad_forward_launches=grad_launches,
+             fastdvd_reconstruction_launches_expected=FASTDVD_LAUNCHES["bf16"],
+             bound_basis="4 bytes an element / 3.35 TB/s (H100 SXM HBM3 data sheet)", **card)
+        report["bn_relu"] = {"max_abs_err": 0.0, "ms": per["c90_512"]["ms"],
+                             "warm_l2_ms": per["c90_512"]["warm_l2_ms"],
+                             "plain_ms": per["c90_512"]["plain_ms"],
+                             "bound_ms": per["c90_512"]["bound_ms"], "bound_by": "bytes",
+                             "per_prior_call_ms": call["ms"],
+                             "per_prior_call_plain_ms": call["plain_ms"],
+                             "per_prior_call_bound_ms": call["bound_ms"]}
+
     def run_flagship(scene, prior, params, device, warm_iters=40):
         return reconstruct_single_dispatch(
             scene.meas, scene.mask, GapTVConfig(iters=warm_iters),
@@ -1769,15 +1868,13 @@ def main(argv: list[str]) -> int:
             # 40 warm-start x-updates and TV proxes at 128^2; 2 groups of 2
             # windows of 80 (tile 64, overlap 8): 10 ADMM and 40 masked GAP-TV
             # x-updates and 40 TV proxes each (the guard's candidate 0)
-            "tiled": (tiled_run, {"x_update": 40 + 2 * (10 + 40), "tv_chambolle": 40 + 2 * 40,
-                                  "convpair": 0}),
+            "tiled": (tiled_run, _launches(40 + 2 * (10 + 40), 40 + 2 * 40)),
             "sequence": (sequence_run, SEQUENCE_LAUNCHES),
             # the two measurements' ADMM iterations in lockstep: 25 launches
-            "batched": (batched_run, {"x_update": 2 * 40 + 25, "tv_chambolle": 2 * 40,
-                                      "convpair": 0}),
-            "gap_deep": (gap_deep_run, {"x_update": 10, "tv_chambolle": 0, "convpair": 0}),
-            "menon2007": (menon_run, {"x_update": 65, "tv_chambolle": 40, "convpair": 0}),
-            "gray": (gray_run, {"x_update": 0, "tv_chambolle": 40, "convpair": 0}),
+            "batched": (batched_run, _launches(2 * 40 + 25, 2 * 40)),
+            "gap_deep": (gap_deep_run, _launches(10)),
+            "menon2007": (menon_run, _launches(65, 40)),
+            "gray": (gray_run, _launches(0, 40)),
         }
         db_bar, dx_bar = DRIVERS_PARITY_BAR
         for name, (run, want_counts) in cases.items():
@@ -2076,7 +2173,7 @@ def main(argv: list[str]) -> int:
                 cli_shapes[shape] = cli_shapes.get(shape, 0) + v
             return buf.getvalue(), secs
 
-        cli_counts = {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
+        cli_counts = _launches()
         cli_shapes: dict[tuple[int, int, int], int] = {}
         with tempfile.TemporaryDirectory() as d:
             s, w, r, r0 = (str(Path(d) / f) for f in ("s.mat", "w.mat", "r.mat", "r0.mat"))
@@ -2270,7 +2367,7 @@ def main(argv: list[str]) -> int:
             step_log.append((time.perf_counter() - t0, float(loss)))
             return loss
 
-        train_counts = {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
+        train_counts = _launches()
         train_shapes: dict[tuple[int, int, int], int] = {}
         networks: dict[str, dict] = {}
         with tempfile.TemporaryDirectory() as d:
@@ -2440,8 +2537,8 @@ def main(argv: list[str]) -> int:
             warm = [e["launches"] for mode in sp["scenes"] for e in logs[mode]
                     if e["kind"] == "warm"]
             require(len(warm) == sum(map(len, sp["scenes"].values())) and all(
-                w == {"x_update": 40 * sp["n_meas"], "tv_chambolle": 40 * sp["n_meas"],
-                      "convpair": 0} for w in warm), f"scenes_parity: warm-start launches {warm}")
+                w == _launches(40 * sp["n_meas"], 40 * sp["n_meas"]) for w in warm),
+                f"scenes_parity: warm-start launches {warm}")
 
     if phases & {"scenes", "scenes_full"}:
         sk = SCENES
@@ -2471,10 +2568,10 @@ def main(argv: list[str]) -> int:
         warm_logs = [e for e in log if e["kind"] == "warm"]
         require(len(rows) == len(row_logs) == n_rows and len(warm_logs) == n_rows,
                 f"scenes: {len(rows)} rows, {len(warm_logs)} warm starts")
-        scene_counts = {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
+        scene_counts = _launches()
         scene_shapes: dict[tuple[int, int, int], int] = {}
         for e in warm_logs:
-            require(e["launches"] == {"x_update": 40, "tv_chambolle": 40, "convpair": 0},
+            require(e["launches"] == _launches(40, 40),
                     f"scenes: warm start of {e['scene']}: {e['launches']}")
         for row, e in zip(rows, row_logs, strict=True):
             name, mode = row[0], row[1]
@@ -3655,16 +3752,22 @@ def main(argv: list[str]) -> int:
             launches_suite[f"convpair_{name}"] = report["launches_convpair_suite"].get(
                 (c, h * STUDIES["size"] // 512, w * STUDIES["size"] // 512), 0)
             launches_bench[f"convpair_{name}"] = 0
+        # the epilogue kernel runs on the bf16 FastDVDnet path alone, as the conv pair
+        launches["bn_relu"] = report["launches_fastdvd_bf16"]["bn_relu"]
         pallas = {"x_update": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:58",
                   "tv_chambolle": "adaptivepnp_sci_tpu/ops/pallas_kernels.py:93",
-                  "convpair": "scripts/ab_pallas_convpair.py:47"}
+                  "convpair": "scripts/ab_pallas_convpair.py:47",
+                  "bn_relu": "none: XLA fused the epilogue into the convolution"}
         sources = {"x_update": "x_update.cu", "tv_chambolle": "tv_chambolle.cu",
-                   "convpair": "convpair_wgmma.cu"}
+                   "convpair": "convpair_wgmma.cu", "bn_relu": "bn_relu.cu"}
         extra = {"x_update": ("items2_ms", "items2_plain_ms", "items2_bound_ms"),
-                 "tv_chambolle": ("ms_1024", "block_ms_1024", "ms_288")}
+                 "tv_chambolle": ("ms_1024", "block_ms_1024", "ms_288"),
+                 "bn_relu": ("warm_l2_ms", "per_prior_call_ms", "per_prior_call_plain_ms",
+                             "per_prior_call_bound_ms")}
         rows = []
         for name, kernel in (("x_update", "x_update"), ("tv_chambolle", "tv_chambolle"),
-                             *((f"convpair_{n}", "convpair") for n in CONVPAIR_MAIN_SHAPES)):
+                             *((f"convpair_{n}", "convpair") for n in CONVPAIR_MAIN_SHAPES),
+                             ("bn_relu", "bn_relu")):
             r = report[name]
             rows.append({"name": name, "route": "cuda",
                          "source": f"adaptivepnp_sci_torch/csrc/{sources[kernel]}",

@@ -3,7 +3,8 @@
 These need an NVIDIA GPU and ``nvcc``; without a GPU they skip. On the card:
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda``.
 Bar: rtol 1e-5 / atol 1e-6, as for the Pallas kernels; the bf16 conv pair is
-held to the A/B script's gate, max abs error / max abs reference < 2e-2.
+held to the A/B script's gate, max abs error / max abs reference < 2e-2; the
+bf16 BatchNorm-and-ReLU epilogue bit for bit.
 """
 
 from pathlib import Path
@@ -316,3 +317,71 @@ def test_bf16_fastdvdnet_runs_the_kernel_only_without_gradient(cuda):
     assert cuda_kernels.launches["convpair"] == before + 8
     assert all(p.grad is not None and bool(p.grad.isfinite().all()) for p in net.parameters())
     assert float((fused - plain.detach()).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("shape", [(3, 90, 5, 7), (3, 90, 127, 129)])
+def test_bn_relu_kernel_equals_the_plain_epilogue_bit_for_bit(cuda, shape, channels_last):
+    """C = 90: vectors of 8 straddle channels in both layouts (HW = 35 and
+    16383 are not multiples of 8); the element count is not a multiple of 8
+    either, and the larger shape takes several turns of the grid-stride loop.
+    NaN, +-0 and negative inputs included."""
+    n, c, h, w = shape
+    g = torch.Generator().manual_seed(h)
+    x = torch.randn(shape, generator=g) * 4
+    flat = x.view(-1)
+    flat[::97] = float("nan")
+    flat[1::89] = 0.0
+    flat[2::83] = -0.0
+    x = x.to(torch.bfloat16).to(cuda)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    s = (torch.randn(c, generator=g) * 2).to(cuda)
+    b = torch.randn(c, generator=g).to(cuda)
+    s[:3] = torch.tensor([0.0, -0.0, -1.0])
+    before = cuda_kernels.launches["bn_relu"]
+    got = cuda_kernels.scale_shift_relu(x, s, b)
+    want = convpair.scale_shift_relu(x, s, b)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["bn_relu"] == before + 1
+    assert x.numel() % 8 and got.stride() == want.stride() == x.stride()
+    assert bool(want.isnan().any()) and bool((want == 0).any())
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_bn_relu_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(2, 90, 8, 8, device=cuda).to(torch.bfloat16)
+    s, b = torch.randn(90, device=cuda), torch.randn(90, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_kernels.scale_shift_relu(x.float(), s, b)
+    with pytest.raises(ValueError):
+        cuda_kernels.scale_shift_relu(x, s[:64], b[:64])
+    with pytest.raises(ValueError):
+        cuda_kernels.scale_shift_relu(x.transpose(2, 3), s, b)
+    with pytest.raises(RuntimeError):  # no backward
+        cuda_kernels.scale_shift_relu(x, s.clone().requires_grad_(True), b)
+    with torch.no_grad():  # the same tensors without grad mode run
+        cuda_kernels.scale_shift_relu(x, s.clone().requires_grad_(True), b)
+
+
+def test_bf16_fastdvdnet_runs_the_epilogue_kernel_only_without_gradient(cuda, monkeypatch):
+    """Ten epilogue launches per ``seq_circular`` call under no_grad (five
+    BatchNorm'd library convolutions per DenBlock, two DenBlocks), equal bit
+    for bit to the same call with PyTorch's passes; none with a gradient."""
+    root = Path(__file__).resolve().parent.parent
+    net = FastDVDnet(dtype=torch.bfloat16, remat=False)
+    net.load_state_dict(
+        fastdvdnet_from_flax(load_variables_npz(str(root / "weights" / "fastdvd.npz"))))
+    net.to(cuda).eval()
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(8, 64, 48, 3, generator=g).to(cuda)
+    before = cuda_kernels.launches["bn_relu"]
+    with torch.no_grad():
+        fused = net.seq_circular(x, 12 / 255)
+        assert cuda_kernels.launches["bn_relu"] == before + 10
+        monkeypatch.setattr(cuda_kernels, "scale_shift_relu", convpair.scale_shift_relu)
+        plain = net.seq_circular(x, 12 / 255)
+        monkeypatch.undo()
+    assert torch.equal(fused, plain)
+    net.seq_circular(x, 12 / 255).square().mean().backward()
+    assert cuda_kernels.launches["bn_relu"] == before + 10

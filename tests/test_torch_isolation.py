@@ -202,8 +202,8 @@ with contextlib.redirect_stdout(io.StringIO()) as out:
 assert line["device"] == "cpu" and '"psnr_db"' in out.getvalue() and "batch  1:" in out.getvalue()
 assert batches[0][5].shape == (1, 8, 16, 16) and [r[0] for r in suite] == ["1", "6"]
 assert set(run_benchmark_suite.suite_configs()) == set(run_benchmark_suite.ROWS) - {"1"}
-assert cuda_kernels.launches == {"x_update": 0, "tv_chambolle": 0, "convpair": 0}, \
-    cuda_kernels.launches
+assert cuda_kernels.launches == {"x_update": 0, "tv_chambolle": 0, "convpair": 0,
+                                 "bn_relu": 0}, cuda_kernels.launches
 bad = sorted(m for m in sys.modules if sys.modules[m] is not None and m.split(".")[0] in (
     "jax", "jaxlib", "flax", "optax", "adaptivepnp_sci_tpu", "PIL", "matplotlib"))
 print("FOREIGN", bad)
@@ -262,5 +262,9 @@ def test_cpu_tensors_take_plain_path_without_launches(rng):
                        tv.tv_chambolle_multichannel(theta))
     pair = make_inputs(1, 6, 5, 32, torch.device("cpu"))
     assert torch.equal(cuda_kernels.convpair(*pair), convpair.convpair(*pair))
-    assert cuda_kernels.launches == {"x_update": 0, "tv_chambolle": 0, "convpair": 0}
+    act = pair[0].permute(0, 3, 1, 2)
+    assert torch.equal(cuda_kernels.scale_shift_relu(act, pair[2], pair[3]),
+                       convpair.scale_shift_relu(act, pair[2], pair[3]))
+    assert cuda_kernels.launches == {"x_update": 0, "tv_chambolle": 0, "convpair": 0,
+                                     "bn_relu": 0}
     assert cuda_kernels._libs == {}  # nothing was built
